@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of tpusparse_torch on one CUDA card: the superscan Cholesky
-solve and the device SpMV end to end, through their hand-written
-kernels.
+"""Smoke run of tpusparse_torch on one CUDA card: the Cholesky solves
+(superscan, supernodal, fixed-tile with its updown) and the device SpMV
+end to end, through their hand-written kernels.
 
     python3 chip_smoke.py
 
@@ -13,7 +13,8 @@ Phases (any failure raises, so the exit code is nonzero):
      (H, W) of the canonical plan, at its largest per-step batch, within
      1e-5 relative; the NaN contract of a non-SPD tile; CUDA-event times
      of kernel, plain version and library call, each with the stream's
-     queue filled first, so they are device times (cuda_ms);
+     queue filled first, so they are device times (cuda_ms); and the
+     shared-L trsm at every (r, 128, 128) of the g=24 fixed-tile plan;
   4. canonical cell: 3D Laplacian g=24 (n=13,824), plan fields equal to
      the JAX planner's, factor through both kernels, refined residual
      <= 1e-14;
@@ -21,7 +22,8 @@ Phases (any failure raises, so the exit code is nonzero):
      kernel launch counters reset just before it: both kernels must
      launch, plan fields as the JAX planner gives them, residual
      <= 1e-14;
-  6. failure contract: a non-SPD 8x8 matrix gives factor() False;
+  6. failure contract: a non-SPD matrix gives factor() False in each
+     engine;
   8. the SpMV path, spmv_plan(A, "auto", device="cuda") -> apply, on six
      matrices (SPMV_CASES), each with the launch counters reset just
      before it: the mode, the case's kernel launched, y against scipy's
@@ -34,11 +36,25 @@ Phases (any failure raises, so the exit code is nonzero):
      SELL (v1 slabs, and v2 slabs of the RCM-ordered matrix, every S
      class) and BELL kernels against their plain versions within 1e-5
      relative; device times of kernel, plain version and cuSPARSE as in
-     phase 3, and the wrapper's host time per call.
+     phase 3, and the wrapper's host time per call;
+  9. cholsol(1, A, b) with engine "auto" on the g=24 grid: the engine is
+     SupernodalCholesky (n < 16,384), plan fields as the JAX planner
+     gives them, residual <= 1e-14; it launches no kernel of this repo
+     (its dense blocks go to the library calls, as in the JAX package);
+ 10. cholsol(1, A, b, engine="tiled") on the g=24 grid, with the launch
+     counters reset just before it: the chol and shared-L trsm kernels
+     must launch, plan fields, residual <= 1e-14;
+ 11. updown on a fixed-tile factor of the g=12 grid (demo3's recipe):
+     update then downdate, each refined residual against A +- w w^T
+     <= 1e-12, the pool still on the card.
+Phases 9-11 print plan, factor (first and warm), solve and updown wall
+times, peak device memory, and a torch.profiler window over one warm
+factor (one update + downdate in 11): device ops, kernel time, busy
+share and the longest kernels.
 
 The line before the last is {"kernels": [...]} (launches counted in
-phases 5 and 8, errors and times measured in phases 3 and 7, each a sum
-over the main-path shapes checked; the v2 SELL slabs are checked but
+phases 5, 8 and 10, errors and times measured in phases 3 and 7, each a
+sum over the main-path shapes checked; the v2 SELL slabs are checked but
 left out; an SpMV bound counts the bytes of the real entries, not the
 padding); the last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX and nothing of the JAX package.
@@ -46,6 +62,7 @@ Imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -60,12 +77,16 @@ import tpusparse_torch
 from tpusparse_torch.core import CSCMatrix
 from tpusparse_torch.demo import resid_metric
 from tpusparse_torch.device import solvers
+from tpusparse_torch.device.chol_plan import plan_cholesky
+from tpusparse_torch.device.chol_tpu import TpuCholesky
 from tpusparse_torch.device.kernels import (_build, bell_spmv, bell_spmv_ref,
                                             chol_tiles, chol_tiles_ref,
                                             dia_spmv, dia_spmv_ref,
                                             sell_spmv, sell_spmv_ref,
-                                            trsm_tiles_batched,
-                                            trsm_tiles_batched_ref)
+                                            trsm_tiles, trsm_tiles_batched,
+                                            trsm_tiles_batched_ref,
+                                            trsm_tiles_ref)
+from tpusparse_torch.device.supernodal import SupernodalCholesky
 from tpusparse_torch.device.superscan import SuperscanCholesky
 
 # plan fields of the canonical cell (BENCH_r05) and of the g=48 grid, as
@@ -74,6 +95,14 @@ from tpusparse_torch.device.superscan import SuperscanCholesky
 CANON = dict(n=13824, nnz=93312, lnz=1874559, flops_true=969172461,
              flops_padded=1607240757, waste=0.397, occupancy=0.9968)
 LARGE = dict(g=48, n=110592, lnz=52302620, flops_true=136423581398)
+# the supernodal and fixed-tile plans of the g=24 grid, order 1
+SUPERNODAL = dict(n=13824, lnz=1874559, flops_true=969172461,
+                  flops_padded=14005883886, snodes=216, nlevels=87,
+                  buckets=157)
+TILED = dict(n=13824, lnz=1874559, flops_true=969172461,
+             flops_padded=19631439800, B=128, nb=108, T=991)
+UPDOWN_G = 12
+UPDOWN_RESID = 1e-12
 TOL = 1e-5          # kernel vs plain version, relative to max|plain|
 RESID = 1e-14
 DEV = "cuda"
@@ -88,6 +117,9 @@ KERNELS = {
         fn=trsm_tiles_batched, ref=trsm_tiles_batched_ref,
         source="tpusparse_torch/csrc/trsm_tile.cu",
         replaces="tpusparse/device/kernels/trsm_tile.py:76"),
+    "trsm_tiles": dict(fn=trsm_tiles, ref=trsm_tiles_ref,
+                       source="tpusparse_torch/csrc/trsm_tile.cu",
+                       replaces="tpusparse/device/kernels/trsm_tile.py:39"),
     "dia_spmv": dict(fn=dia_spmv, ref=dia_spmv_ref,
                      source="tpusparse_torch/csrc/dia_spmv.cu",
                      replaces="tpusparse/device/kernels/dia_spmv.py:40"),
@@ -267,11 +299,14 @@ def rel_err(out: torch.Tensor, ref: torch.Tensor, what: str) -> tuple:
     return err, rel
 
 
-def check_plan(plan, A, want) -> None:
+def check_plan(plan, A, want, **extra) -> None:
+    """Raises unless every field of ``want`` that the plan has (or that
+    ``extra`` gives) equals it."""
     got = dict(n=plan.n, nnz=int(A.indptr[-1]), lnz=plan.lnz,
                flops_true=plan.flops_true, flops_padded=plan.flops_padded,
-               waste=round(plan.waste_ratio, 4),
-               occupancy=round(plan.slot_occupancy, 4))
+               waste=round(plan.waste_ratio, 4), **extra)
+    if hasattr(plan, "slot_occupancy"):
+        got["occupancy"] = round(plan.slot_occupancy, 4)
     for k, v in want.items():
         if k in got and got[k] != v:
             raise AssertionError(f"plan field {k}: {got[k]} != {v}")
@@ -349,6 +384,20 @@ def phase_kernels(plan) -> None:
                 (nt * W * W + 2 * nt * H * W) * 4, nt * H * W * W,
                 f"H={H} W={W} nt={nt}")
 
+    # the shared-L trsm of the fixed-tile engine at every panel height of
+    # the g=24 plan (B = 128)
+    tplan = plan_cholesky(grid_spd_3d(24), order=1)
+    W = tplan.B
+    for r in sorted({x.size for x in tplan.off_ids} - {0}):
+        L = chol_tiles_ref(spd(1, W))[0]
+        X = torch.from_numpy(rng.normal(size=(r, W, W)).astype(
+            np.float32)).to(dev)
+        compare("trsm_tiles", (L, X),
+                lambda: torch.linalg.solve_triangular(
+                    L.mT.expand(r, -1, -1), X, upper=True, left=False),
+                4 * (W * W + 2 * r * W * W), r * W * W * W,
+                f"nt={r} R={W} W={W}")
+
     A = spd(4, 16)
     A[2, 5, 5] = -A[2, 5, 5]                     # tile 2 is not SPD
     L, R = chol_tiles(A), chol_tiles_ref(A)
@@ -397,48 +446,71 @@ def phase_canonical(F: SuperscanCholesky, A: CSCMatrix, t_plan: float):
         f"residual {r:.3e}, launches in first factor {n_first}")
 
 
-class _TimedCholesky(SuperscanCholesky):
-    """Records plan / factor / solve wall times of the factor object that
-    cholsol makes (sync: factor ends on its finiteness check, solve on
-    its download)."""
-    last = None
+def _timed(cls):
+    """A subclass of the engine ``cls`` that records the plan / factor /
+    solve wall times of the factor object cholsol makes (sync: factor
+    ends on its finiteness check, solve on its download)."""
+    class Timed(cls):
+        def __init__(self, *a, **kw):
+            t0 = time.perf_counter()
+            super().__init__(*a, **kw)
+            self.t = {"plan": time.perf_counter() - t0, "factor": []}
+            made.append(self)
 
-    def __init__(self, *a, **kw):
-        t0 = time.perf_counter()
-        super().__init__(*a, **kw)
-        self.t = {"plan": time.perf_counter() - t0}
-        _TimedCholesky.last = self
+        def factor(self):
+            t0 = time.perf_counter()
+            ok = super().factor()
+            self.t["factor"].append(time.perf_counter() - t0)
+            return ok
 
-    def factor(self):
-        t0 = time.perf_counter()
-        ok = super().factor()
-        self.t["factor"] = time.perf_counter() - t0
-        return ok
+        def solve(self, b, refine_iters=3):
+            t0 = time.perf_counter()
+            x = super().solve(b, refine_iters)
+            self.t["solve"] = time.perf_counter() - t0
+            return x
 
-    def solve(self, b, refine_iters=3):
+    made = []
+    Timed.made = made
+    return Timed
+
+
+ENGINES = {"SuperscanCholesky": SuperscanCholesky,
+           "SupernodalCholesky": SupernodalCholesky,
+           "TpuCholesky": TpuCholesky}
+
+
+def timed_cholsol(A: CSCMatrix, b: np.ndarray, **kw) -> tuple:
+    """tpusparse_torch.cholsol(1, A, b, device=DEV, **kw) with the launch
+    counters reset just before it and every engine timed: returns (the
+    one factor object it made, x, launches, wall s)."""
+    timed = {name: _timed(cls) for name, cls in ENGINES.items()}
+    for name, cls in timed.items():
+        setattr(solvers, name, cls)
+    try:
+        reset_launches()
         t0 = time.perf_counter()
-        x = super().solve(b, refine_iters)
-        self.t["solve"] = time.perf_counter() - t0
-        return x
+        ok, x = tpusparse_torch.cholsol(1, A, b, device=DEV, **kw)
+        sync()
+        t_all = time.perf_counter() - t0
+        counts = launches()
+    finally:
+        for name, cls in ENGINES.items():
+            setattr(solvers, name, cls)
+    made = [F for cls in timed.values() for F in cls.made]
+    if len(made) != 1:
+        raise AssertionError(f"cholsol made {len(made)} factor objects")
+    if not ok:
+        raise AssertionError(f"cholsol n={A.n} {kw} returned ok=False")
+    return made[0], x, counts, t_all
 
 
 def phase_large() -> dict:
     g = LARGE["g"]
     A = grid_spd_3d(g)
     b = np.random.default_rng(2).normal(size=A.n)
-    solvers.SuperscanCholesky = _TimedCholesky
-    try:
-        reset_launches()
-        t0 = time.perf_counter()
-        ok, x = tpusparse_torch.cholsol(1, A, b, device=DEV)
-        sync()
-        t_all = time.perf_counter() - t0
-        counts = launches()
-    finally:
-        solvers.SuperscanCholesky = SuperscanCholesky
-    F = _TimedCholesky.last
-    if not ok:
-        raise AssertionError("cholsol at g=48 returned ok=False")
+    F, x, counts, t_all = timed_cholsol(A, b)
+    if not isinstance(F, SuperscanCholesky):
+        raise AssertionError(f"auto chose {type(F).__mro__[1].__name__}")
     if not (counts["chol_tiles"] > 0 and counts["trsm_tiles_batched"] > 0):
         raise AssertionError(f"cholsol skipped a kernel: {counts}")
     check_plan(F.plan, A, {k: LARGE[k] for k in ("n", "lnz",
@@ -446,9 +518,10 @@ def phase_large() -> dict:
     r = resid_metric(A, x, b)
     if not (np.all(np.isfinite(x)) and x.shape == (A.n,) and r <= RESID):
         raise AssertionError(f"g=48 residual {r:.3e}")
+    t_f = F.t["factor"][0]
     log(f"[5] cholsol g={g} n={A.n}: plan {F.t['plan']:.2f} s, factor "
-        f"{F.t['factor']:.3f} s "
-        f"({F.plan.flops_true / F.t['factor'] / 1e9:.2f} GFLOP/s true), "
+        f"{t_f:.3f} s "
+        f"({F.plan.flops_true / t_f / 1e9:.2f} GFLOP/s true), "
         f"refined solve {F.t['solve']:.3f} s, total {t_all:.2f} s, "
         f"residual {r:.3e}, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
@@ -459,13 +532,165 @@ def phase_large() -> dict:
 def phase_failure() -> None:
     d = np.eye(8)
     d[4, 4] = -1.0
-    S = sp.csc_matrix(d + 0.01 * np.ones((8, 8)))
-    S.sort_indices()
-    A = CSCMatrix(8, 8, S.indptr, S.indices, S.data)
-    F = SuperscanCholesky(A, order=0, wmax=8, device=DEV)
-    if F.factor() is not False:
-        raise AssertionError("non-SPD matrix factored")
-    log("[6] failure contract: non-SPD 8x8 -> factor() False")
+    A = _csc(sp.csc_matrix(d + 0.01 * np.ones((8, 8))))
+    for F in (SuperscanCholesky(A, order=0, wmax=8, device=DEV),
+              SupernodalCholesky(A, order=0, device=DEV),
+              TpuCholesky(A, order=0, block=8, device=DEV)):
+        if F.factor() is not False:
+            raise AssertionError(f"{type(F).__name__}: non-SPD matrix "
+                                 f"factored")
+    log("[6] failure contract: non-SPD 8x8 -> factor() False in the "
+        "superscan, supernodal and fixed-tile engines")
+
+
+def warm_factor_s(F) -> float:
+    """Best of three further factor() calls, in seconds."""
+    for _ in range(3):
+        if not F.factor():
+            raise AssertionError(f"{type(F).__name__}: warm factor failed")
+    return min(F.t["factor"][1:])
+
+
+def check_solution(label: str, A: CSCMatrix, x, b, tol: float) -> float:
+    r = resid_metric(A, x, b)
+    if not (np.all(np.isfinite(x)) and x.shape == (A.n,) and r <= tol):
+        raise AssertionError(f"{label}: residual {r:.3e}")
+    return r
+
+
+def device_profile(fn) -> str:
+    """One fn() under torch.profiler: the device kernels it ran (count,
+    summed time; one stream, so they do not overlap), the wall time of
+    the profiled call and the three kernels that took longest."""
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = time.perf_counter() - t0
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    if not rows:
+        return "device time not measured (the profiler recorded none)"
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    top = "; ".join(f"{k[:60]} x{c} {t / 1e3:.2f} ms" for t, c, k in rows[:3])
+    return (f"{sum(r[1] for r in rows)} device ops, {busy_ms:.2f} ms of "
+            f"kernel time in a {wall * 1e3:.1f} ms profiled wall (busy "
+            f"{busy_ms / (wall * 1e3):.3f}); top: {top}")
+
+
+def fresh_memory() -> float:
+    """Frees what earlier phases left (reference cycles included) and
+    restarts the peak count; returns the MiB still allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 2**20
+
+
+def engine_line(label: str, F, r: float, t_all: float, counts,
+                base: float) -> None:
+    t_f = F.t["factor"]
+    log(f"[{label}] plan {F.t['plan']:.3f} s, factor first "
+        f"{t_f[0] * 1e3:.1f} ms, warm {min(t_f[1:]) * 1e3:.1f} ms "
+        f"({F.plan.flops_true / min(t_f[1:]) / 1e9:.2f} GFLOP/s true), "
+        f"refined solve {F.t['solve'] * 1e3:.1f} ms, cholsol total "
+        f"{t_all:.2f} s, residual {r:.3e}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB (of it "
+        f"{base:.0f} MiB held before the phase), launches {counts}")
+
+
+def phase_supernodal() -> None:
+    A = grid_spd_3d(24)
+    b = np.random.default_rng(5).normal(size=A.n)
+    base = fresh_memory()
+    F, x, counts, t_all = timed_cholsol(A, b)
+    if not isinstance(F, SupernodalCholesky):
+        raise AssertionError(f"auto chose {type(F).__mro__[1].__name__} "
+                             f"at n={A.n}")
+    p = F.plan
+    check_plan(p, A, SUPERNODAL, snodes=len(p.snodes), nlevels=p.nlevels,
+               buckets=len(p.buckets))
+    if any(counts.values()):
+        raise AssertionError(f"supernodal launched a kernel: {counts}")
+    r = check_solution("supernodal g=24", A, x, b, RESID)
+    warm_factor_s(F)
+    widths = sorted({W for _, W in p.buckets})
+    log(f"[9] cholsol auto g=24 n={A.n} -> SupernodalCholesky: "
+        f"{len(p.snodes)} supernodes, {p.nlevels} levels, "
+        f"{len(p.buckets)} buckets (widths {widths}), flops_padded "
+        f"{p.flops_padded}")
+    engine_line("9", F, r, t_all, counts, base)
+    log(f"[9] warm factor profiled: {device_profile(F.factor)}")
+
+
+def phase_tiled() -> dict:
+    A = grid_spd_3d(24)
+    b = np.random.default_rng(6).normal(size=A.n)
+    base = fresh_memory()
+    F, x, counts, t_all = timed_cholsol(A, b, engine="tiled")
+    if not isinstance(F, TpuCholesky):
+        raise AssertionError(f"engine tiled made "
+                             f"{type(F).__mro__[1].__name__}")
+    p = F.plan
+    check_plan(p, A, TILED, B=p.B, nb=p.nb, T=p.pool_init.shape[0])
+    if not (counts["chol_tiles"] > 0 and counts["trsm_tiles"] > 0):
+        raise AssertionError(f"tiled cholsol skipped a kernel: {counts}")
+    r = check_solution("tiled g=24", A, x, b, RESID)
+    warm_factor_s(F)
+    log(f"[10] cholsol tiled g=24 n={A.n}: B {p.B}, nb {p.nb}, T "
+        f"{p.pool_init.shape[0]}, flops_padded {p.flops_padded}")
+    engine_line("10", F, r, t_all, counts, base)
+    log(f"[10] warm factor profiled: {device_profile(F.factor)}")
+    return counts
+
+
+def phase_updown() -> None:
+    g = UPDOWN_G
+    A = grid_spd_3d(g)
+    n = A.n
+    rng = np.random.default_rng(1)
+    b = rng.normal(size=n)
+    t0 = time.perf_counter()
+    F = TpuCholesky(A, order=1, device=DEV)
+    if not F.factor():
+        raise AssertionError("updown: factor failed")
+    t_factor = time.perf_counter() - t0
+    # demo3's recipe: w on the pattern of column n/2 of L, in original
+    # coordinates
+    L, _ = F._extract_L()
+    k = n // 2
+    seg = L.indices[L.indptr[k]:L.indptr[k + 1]]
+    wperm = np.zeros(n)
+    wperm[seg] = rng.random(seg.size)
+    w = np.zeros(n)
+    w[F.plan.perm] = wperm
+    S = A.toscipy()
+    ts, rs = [], []
+    for sigma, target in ((+1, S + sp.csc_matrix(np.outer(w, w))), (-1, S)):
+        t0 = time.perf_counter()
+        if not F.updown(sigma, w):
+            raise AssertionError(f"updown({sigma:+d}) returned False")
+        ts.append(time.perf_counter() - t0)
+        if not F.pool.is_cuda:
+            raise AssertionError("updown: the pool left the card")
+        x = F.solve(b)
+        rs.append(check_solution(f"updown({sigma:+d})", _csc(target), x, b,
+                                 UPDOWN_RESID))
+    log(f"[11] updown g={g} n={n} (B {F.plan.B}, nb {F.plan.nb}, "
+        f"{seg.size} entries in w): plan + factor {t_factor:.2f} s, "
+        f"update {ts[0]:.3f} s, downdate {ts[1]:.3f} s "
+        f"({min(ts) / n * 1e6:.1f} us per column), residuals "
+        f"{rs[0]:.3e} / {rs[1]:.3e}, pool on {F.pool.device}")
+
+    def pair():
+        F.updown(+1, w)
+        F.updown(-1, w)
+    log(f"[11] update + downdate profiled: {device_profile(pair)}")
 
 
 # ----------------------------------------------------------- SpMV
@@ -751,7 +976,12 @@ def main() -> None:
     spmv_counts = timed("7+8", phase_spmv)
     for name in ("dia_spmv", "sell_spmv", "bell_spmv"):
         counts[name] = spmv_counts[name]
-    log(f"[9] wall time {time.perf_counter() - t_start:.1f} s")
+    timed("9", phase_supernodal)
+    tiled_counts = timed("10", phase_tiled)
+    counts["chol_tiles"] += tiled_counts["chol_tiles"]
+    counts["trsm_tiles"] = tiled_counts["trsm_tiles"]
+    timed("11", phase_updown)
+    log(f"[12] wall time {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name, k in KERNELS.items():
         s = STATS[name]

@@ -85,9 +85,9 @@ def test_relative_imports_resolve_inside_the_port():
 
 
 def test_import_does_not_load_jax():
-    """A fresh interpreter imports the port, plans a superscan factor and
-    an SpMV (sell, after RCM) on the CPU, and has loaded neither jax nor
-    any module of tpusparse."""
+    """A fresh interpreter imports the port, plans a superscan, a
+    supernodal and a fixed-tile factor and an SpMV (sell, after RCM) on
+    the CPU, and has loaded neither jax nor any module of tpusparse."""
     code = (
         "import sys\n"
         "pre = 'jax' in sys.modules\n"
@@ -100,6 +100,10 @@ def test_import_does_not_load_jax():
         "d = d + d.T + 10 * np.eye(300)\n"
         "A = csc_from_dense(d)\n"
         "assert plan_superscan(A, order=1).lnz > 0\n"
+        "from tpusparse_torch.device import plan_cholesky, "
+        "plan_supernodal\n"
+        "assert plan_supernodal(A, order=1).lnz > 0\n"
+        "assert plan_cholesky(A, order=1).nb > 0\n"
         "p = tpusparse_torch.spmv_plan(A, 'sell', device='cpu')\n"
         "assert np.allclose(p.apply(np.ones(300)).numpy(), d.sum(1),\n"
         "                   atol=1e-4)\n"
@@ -167,6 +171,13 @@ _COPIES = [
                    "to_dia", "to_ell")],
     ("tpusparse/device/spmv.py::_heavy_tail",
      "tpusparse_torch/device/spmv.py::_heavy_tail"),
+    *[(f"tpusparse/device/supernodal.py::{name}",
+       f"tpusparse_torch/device/supernodal_plan.py::{name}")
+      for name in ("_pow2", "_split_widths", "_Snode", "SupernodalPlan",
+                   "plan_supernodal")],
+    *[(f"tpusparse/device/chol_tpu.py::{name}",
+       f"tpusparse_torch/device/chol_plan.py::{name}")
+      for name in ("_tile_pattern", "CholPlan", "plan_cholesky")],
 ]
 
 

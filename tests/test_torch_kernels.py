@@ -1,7 +1,8 @@
-"""The port's kernel wrappers on the CPU (chol and trsm tiles; DIA, SELL
-and BELL SpMV): their plain versions against the JAX package's kernels
-(Pallas in interpret mode, as the JAX tests run them) and its XLA paths,
-the NaN failure contract, the launch counters and the argument checks.
+"""The port's kernel wrappers on the CPU (chol tiles, trsm tiles with a
+per-slot and a shared L; DIA, SELL and BELL SpMV): their plain versions
+against the JAX package's kernels (Pallas in interpret mode, as the JAX
+tests run them) and its XLA paths, the NaN failure contract, the launch
+counters and the argument checks.
 Inputs are made with numpy and handed to both.  The CUDA kernels
 themselves run in chip_smoke.py."""
 
@@ -13,13 +14,16 @@ import torch
 
 from tpusparse.device.kernels.chol_tile import chol_tiles as jax_chol_tiles
 from tpusparse.device.kernels.trsm_tile import \
+    trsm_tiles as jax_trsm_tiles
+from tpusparse.device.kernels.trsm_tile import \
     trsm_tiles_batched as jax_trsm_tiles_batched
 from tpusparse_torch.device.kernels import (bell_spmv, bell_spmv_ref,
                                             chol_tiles, chol_tiles_ref,
                                             dia_spmv, dia_spmv_ref,
                                             sell_spmv, sell_spmv_ref,
-                                            trsm_tiles_batched,
-                                            trsm_tiles_batched_ref)
+                                            trsm_tiles, trsm_tiles_batched,
+                                            trsm_tiles_batched_ref,
+                                            trsm_tiles_ref)
 
 
 def _spd_tiles(rng, nt, B):
@@ -96,18 +100,74 @@ def test_trsm_ref_matches_triangular_solve(rng, nt, R, W):
     assert back <= 1e-5 * np.abs(Y).max() * np.abs(L).max()
 
 
+# ------------------------------------------- trsm with one shared L
+def test_trsm_tiles_ref_matches_pallas_kernel(rng):
+    # the shape of test_device_chol.py::test_pallas_trsm_kernel
+    W, R, nt = 16, 32, 3
+    L, X = _lower(rng, 1, W)[0], rng.normal(size=(nt, R, W)).astype(
+        np.float32)
+    Y = trsm_tiles_ref(torch.from_numpy(L), torch.from_numpy(X)).numpy()
+    Yj = np.asarray(jax_trsm_tiles(jnp.asarray(L), jnp.asarray(X)))
+    assert _rel(Y, Yj) < 1e-5
+
+
+@pytest.mark.parametrize("nt,R,W", [(3, 128, 128), (5, 8, 8)])
+def test_trsm_tiles_ref_matches_triangular_solve(rng, nt, R, W):
+    # the fixed-tile engine's XLA path (chol_tpu.py:276-278)
+    L, X = _lower(rng, 1, W)[0], rng.normal(size=(nt, R, W)).astype(
+        np.float32)
+    Y = trsm_tiles(torch.from_numpy(L), torch.from_numpy(X)).numpy()
+    Yj = np.asarray(jax.lax.linalg.triangular_solve(
+        jnp.broadcast_to(jnp.asarray(L), (nt, W, W)), jnp.asarray(X),
+        left_side=False, lower=True, transpose_a=True))
+    assert _rel(Y, Yj) < 1e-5
+    back = np.abs(Y @ L.T - X).max()
+    assert back <= 1e-5 * np.abs(Y).max() * np.abs(L).max()
+    # one shared L is the per-slot solve with L repeated
+    Yb = trsm_tiles_batched(torch.from_numpy(np.repeat(L[None], nt, 0)),
+                            torch.from_numpy(X)).numpy()
+    assert np.array_equal(Y, Yb)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "R12", "W136", "Lshape", "L3d",
+                                 "noncontig", "device"])
+def test_trsm_tiles_rejects(bad):
+    nt, R, W = 2, 8, 16
+    L, X = torch.eye(W), torch.ones(nt, R, W)
+    if bad == "dtype":
+        L = L.double()
+    elif bad == "R12":
+        X = torch.ones(nt, 12, W)
+    elif bad == "W136":
+        L, X = torch.eye(136), torch.ones(nt, R, 136)
+    elif bad == "Lshape":
+        L = torch.eye(W + 8)
+    elif bad == "L3d":
+        L = torch.eye(W).repeat(nt, 1, 1)
+    elif bad == "noncontig":
+        X = torch.ones(nt, W, R).mT
+    else:
+        X = X.to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        trsm_tiles(L, X)
+
+
 def test_cpu_tensors_take_plain_version_and_count_nothing(rng):
     c0, t0 = chol_tiles.launches, trsm_tiles_batched.launches
+    s0 = trsm_tiles.launches
     A = torch.from_numpy(_spd_tiles(rng, 2, 8))
     assert torch.equal(chol_tiles(A), chol_tiles_ref(A))
     L = torch.from_numpy(_lower(rng, 2, 16))
     X = torch.from_numpy(rng.normal(size=(2, 8, 16)).astype(np.float32))
     assert torch.equal(trsm_tiles_batched(L, X),
                        trsm_tiles_batched_ref(L, X))
+    assert torch.equal(trsm_tiles(L[0], X), trsm_tiles_ref(L[0], X))
     empty = chol_tiles(torch.zeros(0, 8, 8))
     assert empty.shape == (0, 8, 8)
+    assert trsm_tiles(L[0], torch.zeros(0, 8, 16)).shape == (0, 8, 16)
     assert chol_tiles.launches == c0 == 0
     assert trsm_tiles_batched.launches == t0 == 0
+    assert trsm_tiles.launches == s0 == 0
 
 
 @pytest.mark.parametrize("bad", [

@@ -280,18 +280,44 @@ def test_aggregated_phases_not_ported(rng, monkeypatch):
         F.factor()
 
 
-def test_cholsol_entry_point(rng):
+def test_cholsol_entry_point(rng, monkeypatch):
+    """cholsol routes as tpusparse/device/solvers.py:53-57 does: "auto"
+    is supernodal below n = 16,384 (superscan from there up); every
+    engine solves; an unknown engine raises."""
+    from tpusparse_torch.device import solvers
     d, A = _spd(rng, 60, 0.2)
     b = rng.normal(size=60)
     A = _port(A)
+    made = []
+
+    def spy(cls):
+        class Spy(cls):
+            def __init__(self, *a, **kw):
+                made.append(cls.__name__)
+                super().__init__(*a, **kw)
+        return Spy
+
+    for name in ("SuperscanCholesky", "SupernodalCholesky", "TpuCholesky"):
+        monkeypatch.setattr(solvers, name, spy(getattr(solvers, name)))
     ok, x = tpusparse_torch.cholsol(1, A, b, device="cpu")
-    assert ok
+    assert ok and made == ["SupernodalCholesky"]
     assert resid(d, x, b) < 1e-12
     assert tpusparse_torch.cholsol(1, A, b[:-1], device="cpu") == (False,
                                                                    None)
-    for engine in ("supernodal", "tiled"):
-        with pytest.raises(NotImplementedError):
-            tpusparse_torch.cholsol(1, A, b, engine=engine, device="cpu")
+    for engine, cls in (("superscan", "SuperscanCholesky"),
+                        ("supernodal", "SupernodalCholesky"),
+                        ("tiled", "TpuCholesky")):
+        made.clear()
+        ok, x = tpusparse_torch.cholsol(1, A, b, engine=engine,
+                                        device="cpu")
+        assert ok and made == [cls]
+        assert resid(d, x, b) < 1e-12
+    monkeypatch.setattr(solvers, "SUPERSCAN_MIN_N", 60)
+    made.clear()
+    assert tpusparse_torch.cholsol(1, A, b, device="cpu")[0]
+    assert made == ["SuperscanCholesky"]
+    with pytest.raises(ValueError):
+        tpusparse_torch.cholsol(1, A, b, engine="dense", device="cpu")
 
 
 def test_cholsol_not_positive_definite():

@@ -1,13 +1,19 @@
-// Batched triangular solve with a per-slot lower factor:
-//   Y[i] = X[i] * L[i]^-T,  L (nt, W, W) lower, X and Y (nt, R, W),
-// R and W multiples of 8 up to 128.
+// Batched triangular solve with a lower factor, per slot or shared:
+//   Y[i] = X[i] * L[i]^-T,  L (nt, W, W) lower    (tpt_trsm_tiles_batched)
+//   Y[i] = X[i] * L^-T,     L (W, W) lower shared  (tpt_trsm_tiles)
+// X and Y (nt, R, W), R and W multiples of 8 up to 128.
 //
-// Replaces the Pallas kernel _trsm_kernel_b (body _trsm_body) in
-// tpusparse/device/kernels/trsm_tile.py (entry trsm_tiles_batched),
-// which serves the trsm phase of the superscan factorization.  That
-// kernel unrolled 8-wide mini-panels with a masked matmul per panel
-// because its compiler took static slices only; this one writes the
-// substitution out directly.
+// Replaces the two Pallas kernels of tpusparse/device/kernels/trsm_tile.py
+// (body _trsm_body): _trsm_kernel_b (entry trsm_tiles_batched), which
+// serves the trsm phase of the superscan factorization, and _trsm_kernel
+// (entry trsm_tiles), the panel trsm of the fixed-tile engine, where one
+// diagonal tile's factor serves every off-diagonal tile of its panel.
+// Those kernels unrolled 8-wide mini-panels with a masked matmul per
+// panel because their compiler took static slices only; this one writes
+// the substitution out directly.  Both entry points launch the one
+// kernel below: the L batch stride is W * W for a per-slot L and 0 for a
+// shared one (every block then reads the same 64 KB at W = 128, which
+// stays in L2).
 //
 // Design: one thread block per slot.  The slot's W x W factor and its
 // R x W right-hand rows sit in dynamic shared memory (L with row stride
@@ -20,9 +26,10 @@
 // What bounds it: a slot is at most 2 MFLOP with a W-long chain of
 // dependent updates per row, and at R <= 128 a block has at most four
 // busy warps, so the kernel is bound by latency and by the few threads
-// a slot gives it, not by FLOPs or bytes.  The simple design does
-// nothing about that yet; splitting columns over warps and wgmma for the
-// off-diagonal updates are for later work.
+// a slot gives it, not by FLOPs or bytes.  The fixed-tile engine's
+// panels give it at most 15 slots, so most of the card's 132 SMs idle.
+// The simple design does nothing about that yet; splitting columns over
+// warps and wgmma for the off-diagonal updates are for later work.
 
 #include <cuda_runtime.h>
 
@@ -33,12 +40,12 @@ constexpr int kMaxW = 128;
 
 __global__ void __launch_bounds__(kThreads)
 trsm_tile_kernel(const float* __restrict__ L, const float* __restrict__ X,
-                 float* __restrict__ Y, int R, int W) {
+                 float* __restrict__ Y, int R, int W, size_t l_stride) {
   extern __shared__ float sm[];
   float* l = sm;            // W x W, row stride W
   float* y = sm + W * W;    // R x W, row stride W + 1
   const int ldy = W + 1;
-  const size_t lb = static_cast<size_t>(blockIdx.x) * W * W;
+  const size_t lb = static_cast<size_t>(blockIdx.x) * l_stride;
   const size_t xb = static_cast<size_t>(blockIdx.x) * R * W;
 
   for (int e = threadIdx.x; e < W * W; e += blockDim.x) {
@@ -68,14 +75,8 @@ trsm_tile_kernel(const float* __restrict__ L, const float* __restrict__ X,
   }
 }
 
-}  // namespace
-
-// L: (nt, W, W), X, Y: (nt, R, W), f32, contiguous, on the current
-// device.  Launches on `stream` and does not synchronise.  Returns
-// cudaGetLastError().
-extern "C" int tpt_trsm_tiles_batched(const float* L, const float* X,
-                                      float* Y, int nt, int R, int W,
-                                      void* stream) {
+int launch(const float* L, const float* X, float* Y, int nt, int R, int W,
+           size_t l_stride, void* stream) {
   if (nt <= 0) {
     return static_cast<int>(cudaSuccess);
   }
@@ -94,6 +95,24 @@ extern "C" int tpt_trsm_tiles_batched(const float* L, const float* X,
       (static_cast<size_t>(W) * W + static_cast<size_t>(R) * (W + 1))
       * sizeof(float);
   trsm_tile_kernel<<<nt, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(L, X, Y, R, W);
+                     static_cast<cudaStream_t>(stream)>>>(L, X, Y, R, W,
+                                                          l_stride);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// L: (nt, W, W), X, Y: (nt, R, W), f32, contiguous, on the current
+// device.  Launches on `stream` and does not synchronise.  Returns
+// cudaGetLastError().
+extern "C" int tpt_trsm_tiles_batched(const float* L, const float* X,
+                                      float* Y, int nt, int R, int W,
+                                      void* stream) {
+  return launch(L, X, Y, nt, R, W, static_cast<size_t>(W) * W, stream);
+}
+
+// L: (W, W), shared by every slot; X, Y: (nt, R, W); as above.
+extern "C" int tpt_trsm_tiles(const float* L, const float* X, float* Y,
+                              int nt, int R, int W, void* stream) {
+  return launch(L, X, Y, nt, R, W, 0, stream);
 }

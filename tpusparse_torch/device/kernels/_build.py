@@ -39,6 +39,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRY_POINTS = {
     "tpt_chol_tiles": [_P, _P, _I, _I, _P],
     "tpt_trsm_tiles_batched": [_P, _P, _P, _I, _I, _I, _P],
+    "tpt_trsm_tiles": [_P, _P, _P, _I, _I, _I, _P],
     "tpt_dia_spmv": [_P, _P, _P, _P, _I, _I, _I, _P],
     "tpt_sell_spmv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tpt_bell_spmv": [_P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -1,12 +1,14 @@
-"""Batched triangular solve Y[i] = X[i] @ L[i]^-T with a per-slot lower
-L: the trsm phase of the superscan factorization.
+"""Batched triangular solves Y[i] = X[i] @ L^-T with a lower L: per slot
+(``trsm_tiles_batched``, the trsm phase of the superscan factorization)
+or one L shared by the batch (``trsm_tiles``, the panel trsm of the
+fixed-tile engine).
 
-Counterpart of the per-slot-L half of
-tpusparse/device/kernels/trsm_tile.py (the Pallas kernel
-``_trsm_kernel_b``).  On a CUDA tensor ``trsm_tiles_batched`` launches
-the hand-written kernel of csrc/trsm_tile.cu and adds one to
-``trsm_tiles_batched.launches``; on a CPU tensor it returns the plain
-version ``trsm_tiles_batched_ref`` and counts nothing.
+Counterpart of tpusparse/device/kernels/trsm_tile.py (the Pallas
+kernels ``_trsm_kernel_b`` and ``_trsm_kernel``).  On a CUDA tensor each
+wrapper launches the hand-written kernel of csrc/trsm_tile.cu and adds
+one to its own ``launches``; on a CPU tensor it returns its plain
+version (``trsm_tiles_batched_ref``, ``trsm_tiles_ref``) and counts
+nothing.
 """
 
 from __future__ import annotations
@@ -16,23 +18,61 @@ import torch
 from . import _build
 from ._args import expect, one_device
 
-__all__ = ["trsm_tiles_batched", "trsm_tiles_batched_ref"]
+__all__ = ["trsm_tiles", "trsm_tiles_ref", "trsm_tiles_batched",
+           "trsm_tiles_batched_ref"]
 
 _MAX = 128
 
 
-def _check(Lkk: torch.Tensor, X: torch.Tensor) -> torch.device:
-    expect("trsm_tiles_batched", "Lkk", Lkk, torch.float32, 3)
-    expect("trsm_tiles_batched", "X", X, torch.float32, 3)
+def _check(fn: str, Lkk: torch.Tensor, X: torch.Tensor,
+           shared: bool) -> torch.device:
+    expect(fn, "Lkk", Lkk, torch.float32, 2 if shared else 3)
+    expect(fn, "X", X, torch.float32, 3)
     nt, R, W = X.shape
-    if tuple(Lkk.shape) != (nt, W, W):
-        raise ValueError(f"trsm_tiles_batched: Lkk {tuple(Lkk.shape)} "
-                         f"does not match X {tuple(X.shape)}")
+    if tuple(Lkk.shape) != ((W, W) if shared else (nt, W, W)):
+        raise ValueError(f"{fn}: Lkk {tuple(Lkk.shape)} does not match X "
+                         f"{tuple(X.shape)}")
     for name, v in (("R", R), ("W", W)):
         if v % 8 or not 8 <= v <= _MAX:
-            raise ValueError(f"trsm_tiles_batched: {name} must be a "
-                             f"multiple of 8 in [8, {_MAX}], got {v}")
-    return one_device("trsm_tiles_batched", Lkk, X)
+            raise ValueError(f"{fn}: {name} must be a multiple of 8 in "
+                             f"[8, {_MAX}], got {v}")
+    return one_device(fn, Lkk, X)
+
+
+def _launch(entry: str, Lkk: torch.Tensor, X: torch.Tensor,
+            dev: torch.device) -> torch.Tensor:
+    out = torch.empty_like(X)
+    nt, R, W = X.shape
+    if nt == 0:
+        return out
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _build.check(getattr(lib, entry)(Lkk.data_ptr(), X.data_ptr(),
+                                     out.data_ptr(), nt, R, W, stream),
+                 entry)
+    return out
+
+
+def trsm_tiles_ref(Lkk: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """Plain version: solves Y @ Lkk^T = X for Y against the broadcast
+    Lkk."""
+    return torch.linalg.solve_triangular(Lkk.mT.expand(X.shape[0], -1, -1),
+                                         X, upper=True, left=False)
+
+
+def trsm_tiles(Lkk: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """Y[i] = X[i] @ Lkk^-T for one Lkk (W, W) lower and X (nt, R, W),
+    f32.  Only the lower triangle of Lkk is read."""
+    dev = _check("trsm_tiles", Lkk, X, shared=True)
+    if dev.type == "cpu":
+        return trsm_tiles_ref(Lkk, X)
+    out = _launch("tpt_trsm_tiles", Lkk, X, dev)
+    if X.shape[0]:
+        trsm_tiles.launches += 1
+    return out
+
+
+trsm_tiles.launches = 0
 
 
 def trsm_tiles_batched_ref(Lkk: torch.Tensor, X: torch.Tensor
@@ -45,19 +85,12 @@ def trsm_tiles_batched_ref(Lkk: torch.Tensor, X: torch.Tensor
 def trsm_tiles_batched(Lkk: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """Y[i] = X[i] @ Lkk[i]^-T for Lkk (nt, W, W) lower and X (nt, R, W),
     f32.  Only the lower triangle of Lkk is read."""
-    dev = _check(Lkk, X)
+    dev = _check("trsm_tiles_batched", Lkk, X, shared=False)
     if dev.type == "cpu":
         return trsm_tiles_batched_ref(Lkk, X)
-    out = torch.empty_like(X)
-    nt, R, W = X.shape
-    if nt == 0:
-        return out
-    lib = _build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check(lib.tpt_trsm_tiles_batched(
-        Lkk.data_ptr(), X.data_ptr(), out.data_ptr(), nt, R, W, stream),
-        "tpt_trsm_tiles_batched")
-    trsm_tiles_batched.launches += 1
+    out = _launch("tpt_trsm_tiles_batched", Lkk, X, dev)
+    if X.shape[0]:
+        trsm_tiles_batched.launches += 1
     return out
 
 

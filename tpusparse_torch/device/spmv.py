@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from ..core.matrix import CSCMatrix
-from .config import DTYPE
+from .config import DTYPE, round_up
 from .formats import dia_offsets, to_bell, to_dia, to_ell
 from .kernels import bell_spmv, dia_spmv, sell_spmv
 from .kernels.sell_spmv import TILE
@@ -50,10 +50,6 @@ __all__ = ["SpmvPlan", "spmv_plan", "gaxpy_device", "plan_to_numpy",
 # plan fields carried by plan_to_numpy / plan_from_numpy
 _FIELDS = ("m", "n", "mode", "flops", "bytes_min", "bytes_padded",
            "waste_ratio", "spill", "perm", "offsets")
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
 
 
 @dataclass
@@ -167,7 +163,7 @@ def _build_sell(A: CSCMatrix, max_s: int = None, max_tw: int = 4):
     from ..symbolic.rcm import rcm
     from ..core.ops import permute
     from ..core.perm import pinv as _pinv
-    NB = _round_up(n, 128) // 128
+    NB = round_up(n, 128) // 128
 
     def _pack(C):
         """Window selection + slab packing for one candidate ordering;
@@ -429,7 +425,7 @@ def spmv_plan(A: CSCMatrix, mode: str = "auto",
                 mode = "dia"
         if mode == "ell" and A.nnz > 0:
             # quick occupancy probe on the 128x128 tiling
-            nbc = _round_up(A.n, 128) // 128
+            nbc = round_up(A.n, 128) // 128
             cols_of = np.repeat(np.arange(A.n), np.diff(A.indptr))
             keys = (A.indices // 128) * nbc + cols_of // 128
             ntiles = np.unique(keys).size
