@@ -4,6 +4,10 @@
 end to end, through their hand-written kernels.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases 3,8     (a partial run, while developing:
+                                            phases 1 and 2 and those named,
+                                            of 3 4 5 6 8 9 10 11; it prints
+                                            no result lines)
 
 Phases (any failure raises, so the exit code is nonzero):
   1. device: a CUDA card is present; prints nvidia-smi's name and power
@@ -11,10 +15,17 @@ Phases (any failure raises, so the exit code is nonzero):
   2. build: nvcc builds tpusparse_torch/csrc/*.cu into build/ (first use);
   3. kernels vs plain versions on the card, at every chol W and trsm
      (H, W) of the canonical plan, at its largest per-step batch, within
-     1e-5 relative; the NaN contract of a non-SPD tile; CUDA-event times
-     of kernel, plain version and library call, each with the stream's
-     queue filled first, so they are device times (cuda_ms); and the
-     shared-L trsm at every (r, 128, 128) of the g=24 fixed-tile plan;
+     1e-5 relative (W=128 is one tile, the (1, 128, 128) every panel of
+     the fixed-tile path launches); the NaN contract of a non-SPD tile
+     between good ones at B = 16, 128 and 8; CUDA-event times of kernel,
+     plain version and library call, each with the stream's queue filled
+     first, so they are device times (cuda_ms); the shared-L trsm at
+     every (r, 128, 128) of the g=24 fixed-tile plan; the latency of one
+     dependent step of a Cholesky column and of a substitution column
+     (a one-warp probe), which times the tile width gives each tile
+     kernel its chain floor; and, once phase 5 has planned it, the chol
+     kernel at the g=48 plan's largest per-step batch of every W.
+     Yardstick: chol_tiles is no slower than cholesky_ex at any shape;
   4. canonical cell: 3D Laplacian g=24 (n=13,824), plan fields equal to
      the JAX planner's, factor through both kernels, refined residual
      <= 1e-14;
@@ -30,13 +41,18 @@ Phases (any failure raises, so the exit code is nonzero):
      float64 A @ x within 1e-5 * max|y|, gaxpy and apply_permuted on the
      large SELL case; plan seconds, apply time (median of 5 runs of 50
      applies with the y-carry x <- 0.125 y, CUDA events; host launch
-     time included, and the device time alone beside it), GB/s, the
+     time included, and the device time alone and the host's time to
+     queue one apply beside it), GB/s, the
      cuSPARSE CSR matvec in the same loop, spill, waste, peak memory;
   7. right after each phase-8 case, on that plan's buffers: the DIA,
-     SELL (v1 slabs, and v2 slabs of the RCM-ordered matrix, every S
-     class) and BELL kernels against their plain versions within 1e-5
-     relative; device times of kernel, plain version and cuSPARSE as in
-     phase 3, and the wrapper's host time per call;
+     SELL (the compact pack of the v1 slabs, and of the v2 slabs of the
+     RCM-ordered matrix, every S class) and BELL kernels against their
+     plain versions within 1e-5 relative; device times of kernel, plain
+     version and cuSPARSE as in phase 3, and the wrapper's host time per
+     call; the bytes the SELL kernel reads beside the bytes the product
+     needs (at most 1.15 times those) and the padded slabs' bytes.
+     Yardstick: sell_spmv summed over the two kNN cases is no slower
+     than the cuSPARSE CSR matvec summed over them;
   9. cholsol(1, A, b) with engine "auto" on the g=24 grid: the engine is
      SupernodalCholesky (n < 16,384), plan fields as the JAX planner
      gives them, residual <= 1e-14; it launches no kernel of this repo
@@ -56,12 +72,14 @@ The line before the last is {"kernels": [...]} (launches counted in
 phases 5, 8 and 10, errors and times measured in phases 3 and 7, each a
 sum over the main-path shapes checked; the v2 SELL slabs are checked but
 left out; an SpMV bound counts the bytes of the real entries, not the
-padding); the last line is {"ok": true, "device": {...}}.
+padding; chain_ms, beside the bound, is the chain floor of a tile kernel,
+null for the others); the last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import argparse
 import gc
 import json
 import os
@@ -86,6 +104,7 @@ from tpusparse_torch.device.kernels import (_build, bell_spmv, bell_spmv_ref,
                                             trsm_tiles, trsm_tiles_batched,
                                             trsm_tiles_batched_ref,
                                             trsm_tiles_ref)
+from tpusparse_torch.device.kernels.sell_spmv import PACK
 from tpusparse_torch.device.supernodal import SupernodalCholesky
 from tpusparse_torch.device.superscan import SuperscanCholesky
 
@@ -131,8 +150,9 @@ KERNELS = {
                       replaces="tpusparse/device/spmv.py:83"),
 }
 STATS = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-                    bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+                    bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, chain_ms=0.0)
          for name in KERNELS}
+SELL_READ_MAX = 1.15    # bytes the SELL kernel reads / bytes needed
 
 
 def log(msg: str) -> None:
@@ -289,6 +309,14 @@ def record(name: str, err: float, ms: float, pms: float, lms: float,
     return b
 
 
+def yardstick(name: str, label: str, ms: float, lib_ms: float) -> None:
+    """Raises if the kernel took longer than the library call that
+    computes the same function, timed in the same run."""
+    if not ms <= lib_ms:
+        raise AssertionError(f"{name} {label}: kernel {ms:.4f} ms is slower "
+                             f"than the library call, {lib_ms:.4f} ms")
+
+
 def rel_err(out: torch.Tensor, ref: torch.Tensor, what: str) -> tuple:
     """(max abs error, the same over max|ref|); raises above TOL."""
     sync()
@@ -331,6 +359,12 @@ def phase_build() -> None:
     log(f"[2] build: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_seconds if _build.build_seconds else 0:.2f}"
         f" s, one process per source) -> {_build._target()}")
+    with open(_build._target() + ".log") as f:      # ptxas -v, per kernel
+        said = f.read().replace("ptxas info    : ", "").splitlines()
+    for i, line in enumerate(said[:-2]):
+        if line.startswith("Function properties for"):
+            log(f"[2] ...{line.split()[-1][-44:]}: {said[i + 2].strip()}; "
+                f"{said[i + 1].strip()}")
 
 
 def _tile_shapes(plan):
@@ -348,34 +382,98 @@ def _tile_shapes(plan):
     return chol, trsm
 
 
-def phase_kernels(plan) -> None:
+def _spd(rng, nt: int, B: int) -> torch.Tensor:
+    X = torch.from_numpy(rng.normal(size=(nt, B, B)).astype(np.float32))
+    X = X.to(DEV)
+    return X @ X.mT + B * torch.eye(B, device=DEV)
+
+
+def chain_step_ms(kind: int, steps: int = 1 << 16) -> float:
+    """Milliseconds of one dependent step on one warp (tpt_chain_probe):
+    kind 0 a Cholesky column (sqrt, reciprocal, multiply, fused
+    multiply-add), kind 1 a substitution column (fused multiply-add,
+    divide)."""
+    lib = _build.library()
+    out = torch.empty(32, device=DEV)
+
+    def probe():
+        _build.check(lib.tpt_chain_probe(
+            out.data_ptr(), steps, kind,
+            torch.cuda.current_stream().cuda_stream), "tpt_chain_probe")
+    return cuda_ms(probe, reps=3, runs=3) / steps
+
+
+def compare_tiles(name: str, args: tuple, lib, nbytes: float, flops: float,
+                  chain: float, label: str, tally: bool = True) -> tuple:
+    """One shape of a tile kernel against its plain version, with the
+    times of kernel, plain version and library call; returns (kernel ms,
+    library ms).  ``chain`` is the shape's chain floor in ms.  With
+    ``tally`` false the shape is checked and printed but not added to the
+    kernels line."""
+    k = KERNELS[name]
+    err, rel = rel_err(k["fn"](*args), k["ref"](*args), f"{name} {label}")
+    ms = cuda_ms(lambda: k["fn"](*args))
+    pms = cuda_ms(lambda: k["ref"](*args))
+    lms = cuda_ms(lib)
+    if tally:
+        b = record(name, err, ms, pms, lms, nbytes, flops)
+        STATS[name]["chain_ms"] += chain
+    else:
+        b, _ = bound_ms(nbytes, flops)
+    log(f"[3] {name} {label}: max_abs_err {err:.3e} (rel {rel:.1e}), "
+        f"kernel {ms:.4f} ms, plain {pms:.4f} ms, library {lms:.4f} ms, "
+        f"bound {b:.4f} ms, chain floor {chain:.4f} ms")
+    return ms, lms
+
+
+def chol_shape(rng, W: int, nt: int, step: float, label: str,
+               tally: bool = True) -> None:
+    A = _spd(rng, nt, W)
+    ms, lms = compare_tiles(
+        "chol_tiles", (A,), lambda: torch.linalg.cholesky_ex(A),
+        2 * nt * W * W * 4, nt * W ** 3 / 3, W * step, label, tally)
+    yardstick("chol_tiles", label, ms, lms)
+
+
+def chol_nan_contract(rng, B: int, nt: int, bad: int) -> None:
+    """Tile ``bad`` of ``nt`` is not SPD: it must come out non-finite and
+    the tiles around it as the plain version gives them."""
+    A = _spd(rng, nt, B)
+    A[bad, B // 2, B // 2] = -A[bad, B // 2, B // 2]
+    L, R = chol_tiles(A), chol_tiles_ref(A)
+    sync()
+    good = [t for t in range(nt) if t != bad]
+    if torch.isfinite(L[bad]).all() or not torch.isfinite(L[good]).all():
+        raise AssertionError(f"chol_tiles B={B}: NaN contract broken")
+    if not torch.allclose(L[good], R[good], rtol=0,
+                          atol=TOL * R[good].abs().max().item()):
+        raise AssertionError(f"chol_tiles B={B}: SPD tiles next to a bad "
+                             f"one")
+    log(f"[3] chol_tiles NaN contract B={B}: tile {bad} of {nt} is "
+        f"non-finite, the others agree")
+
+
+def phase_kernels(plan) -> tuple:
+    """Returns the probe's (Cholesky, substitution) step latencies."""
     dev = torch.device(DEV)
     rng = np.random.default_rng(0)
-
-    def spd(nt, B):
-        X = rng.normal(size=(nt, B, B)).astype(np.float32)
-        S = np.einsum("tij,tkj->tik", X, X) + B * np.eye(B, dtype=np.float32)
-        return torch.from_numpy(S.astype(np.float32)).to(dev)
+    step_chol, step_trsm = chain_step_ms(0), chain_step_ms(1)
+    log(f"[3] one dependent step on one warp: Cholesky column "
+        f"{step_chol * 1e6:.1f} ns, substitution column "
+        f"{step_trsm * 1e6:.1f} ns (chain floor of a tile kernel = its "
+        f"width times that)")
 
     def compare(name, args, lib, nbytes, flops, label):
-        k = KERNELS[name]
-        err, rel = rel_err(k["fn"](*args), k["ref"](*args),
-                           f"{name} {label}")
-        ms = cuda_ms(lambda: k["fn"](*args))
-        pms = cuda_ms(lambda: k["ref"](*args))
-        lms = cuda_ms(lib)
-        b = record(name, err, ms, pms, lms, nbytes, flops)
-        log(f"[3] {name} {label}: max_abs_err {err:.3e} (rel {rel:.1e}), "
-            f"kernel {ms:.4f} ms, plain {pms:.4f} ms, library {lms:.4f} ms, "
-            f"bound {b:.4f} ms")
+        W = args[0].shape[-1]
+        compare_tiles(name, args, lib, nbytes, flops, W * step_trsm, label)
 
     chol, trsm = _tile_shapes(plan)
     for W, nt in sorted(chol.items()):
-        A = spd(nt, W)
-        compare("chol_tiles", (A,), lambda: torch.linalg.cholesky_ex(A),
-                2 * nt * W * W * 4, nt * W ** 3 / 3, f"W={W} nt={nt}")
+        chol_shape(rng, W, nt, step_chol, f"W={W} nt={nt}"
+                   + (" (the fixed-tile path's panel)" if (W, nt) == (128, 1)
+                      else ""))
     for (H, W), nt in sorted(trsm.items()):
-        L = chol_tiles_ref(spd(nt, W))          # well-conditioned factors
+        L = chol_tiles_ref(_spd(rng, nt, W))    # well-conditioned factors
         X = torch.from_numpy(rng.normal(size=(nt, H, W)).astype(
             np.float32)).to(dev)
         compare("trsm_tiles_batched", (L, X),
@@ -389,7 +487,7 @@ def phase_kernels(plan) -> None:
     tplan = plan_cholesky(grid_spd_3d(24), order=1)
     W = tplan.B
     for r in sorted({x.size for x in tplan.off_ids} - {0}):
-        L = chol_tiles_ref(spd(1, W))[0]
+        L = chol_tiles_ref(_spd(rng, 1, W))[0]
         X = torch.from_numpy(rng.normal(size=(r, W, W)).astype(
             np.float32)).to(dev)
         compare("trsm_tiles", (L, X),
@@ -398,18 +496,23 @@ def phase_kernels(plan) -> None:
                 4 * (W * W + 2 * r * W * W), r * W * W * W,
                 f"nt={r} R={W} W={W}")
 
-    A = spd(4, 16)
-    A[2, 5, 5] = -A[2, 5, 5]                     # tile 2 is not SPD
-    L, R = chol_tiles(A), chol_tiles_ref(A)
-    sync()
-    good = [0, 1, 3]
-    if torch.isfinite(L[2]).all() or not torch.isfinite(L[good]).all():
-        raise AssertionError("chol_tiles: NaN contract broken")
-    if not torch.allclose(L[good], R[good], rtol=0,
-                          atol=TOL * R[good].abs().max().item()):
-        raise AssertionError("chol_tiles: SPD tiles next to a bad one")
-    log("[3] chol_tiles NaN contract: the non-SPD tile is non-finite, "
-        "the others agree")
+    # a bad tile between good ones: in a block of its own (B=128), and
+    # sharing a block with three others (B=16 and 8: four tiles a block)
+    chol_nan_contract(rng, 16, 4, 2)
+    chol_nan_contract(rng, 128, 3, 1)
+    chol_nan_contract(rng, 8, 11, 5)
+    return step_chol, step_trsm
+
+
+def phase_kernels_large(plan, step_chol: float) -> None:
+    """The chol kernel at the largest per-step batch of every W of
+    ``plan`` (the g=48 plan): checked, timed and held to the yardstick,
+    but not added to the kernels line, whose sums stay those of the
+    canonical plan's shapes."""
+    rng = np.random.default_rng(10)
+    chol, _ = _tile_shapes(plan)
+    for W, nt in sorted(chol.items()):
+        chol_shape(rng, W, nt, step_chol, f"g=48 W={W} nt={nt}", tally=False)
 
 
 def phase_canonical(F: SuperscanCholesky, A: CSCMatrix, t_plan: float):
@@ -504,7 +607,7 @@ def timed_cholsol(A: CSCMatrix, b: np.ndarray, **kw) -> tuple:
     return made[0], x, counts, t_all
 
 
-def phase_large() -> dict:
+def phase_large() -> tuple:
     g = LARGE["g"]
     A = grid_spd_3d(g)
     b = np.random.default_rng(2).normal(size=A.n)
@@ -526,7 +629,7 @@ def phase_large() -> dict:
         f"residual {r:.3e}, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"launches {counts}")
-    return counts
+    return counts, F.plan
 
 
 def phase_failure() -> None:
@@ -739,20 +842,26 @@ def kernels_dia(plan, label: str, A: CSCMatrix) -> tuple:
     return ms, nbytes
 
 
-def sell_bytes(bids, win, pos, vals, n: int) -> tuple:
-    """(bytes, entries) the product over one S class needs: vals and pos
-    of its real (nonzero) entries, bids and win, each x entry those
-    entries read and each y row of its blocks, once.  Slab padding is
-    left out."""
-    NB = bids.shape[0]
-    real = vals.reshape(NB, -1) != 0
-    p = pos.reshape(NB, -1).long()
-    j = win.long().gather(1, p >> 10) * 1024 + (p & 1023)
-    nx = torch.unique(j[real]).numel()
-    rows = bids.long()[:, None] * 128 + torch.arange(128, device=DEV)
-    ny = int((rows < n).sum().item())
-    nz = int(real.sum().item())
-    return nz * 8 + (bids.numel() + win.numel() + nx + ny) * 4, nz
+def sell_bytes(pack: tuple, n: int) -> tuple:
+    """(bytes needed, bytes read, padded slab bytes, entries) of the
+    product over one S class, from its compact pack.  Needed: vals (4
+    bytes) and window-relative pos (2) of its real (nonzero) entries,
+    bids and win, each x entry those entries read and each y row of its
+    blocks, once.  Read by the kernel: those and the pack's off, start
+    and rows.  The planner's slabs held 8 S * 128 slots of 8 bytes a
+    block."""
+    bids, win, off, start, rows, cpos, _ = pack
+    NB, D = bids.shape[0], start.shape[1] - 1
+    st = start.long()
+    blk = torch.repeat_interleave(torch.arange(NB, device=DEV), st[:, -1])
+    p = cpos.long()
+    j = win.long()[blk, p >> 10] * 1024 + (p & 1023)
+    nx = torch.unique(j).numel()
+    ny = int((bids.long()[:, None] * 128 + rows.long() < n).sum().item())
+    nz = cpos.numel()
+    need = nz * 6 + (bids.numel() + win.numel() + nx + ny) * 4
+    read = need + off.numel() * 4 + start.numel() * 2 + rows.numel()
+    return need, read, NB * D * 128 * 8, nz
 
 
 def kernels_sell(plan, label: str, A_perm: CSCMatrix,
@@ -765,31 +874,37 @@ def kernels_sell(plan, label: str, A_perm: CSCMatrix,
     _sr, _sc, _sv, _p, _pi, *flat = plan._bufs
     n = plan.n
     x = _x(n, 8)
-    tot_ms = tot_pms = tot_bytes = tot_b = slab_bytes = 0.0
-    for ci in range(len(flat) // 4):
-        bids, win, pos, vals = flat[4 * ci:4 * ci + 4]
-        NB, S = pos.shape[:2]
+    tot_ms = tot_pms = tot_bytes = tot_b = tot_read = slab_bytes = 0.0
+    tot_nz = 0
+    for ci in range(len(flat) // PACK):
+        pack = flat[PACK * ci:PACK * (ci + 1)]
+        bids, win, start = pack[0], pack[1], pack[3]
+        NB, S = bids.shape[0], (start.shape[1] - 1) // 8
         y, r = torch.zeros(n, device=DEV), torch.zeros(n, device=DEV)
-        err, rel = rel_err(sell_spmv(bids, win, pos, vals, x, y),
-                           sell_spmv_ref(bids, win, pos, vals, x, r),
+        err, rel = rel_err(sell_spmv(*pack, x, y), sell_spmv_ref(*pack, x, r),
                            f"sell_spmv {label} S={S}")
-        ms = cuda_ms(lambda: sell_spmv(bids, win, pos, vals, x, y))
-        pms = cuda_ms(lambda: sell_spmv_ref(bids, win, pos, vals, x, r))
-        hus = host_s(lambda: sell_spmv(bids, win, pos, vals, x, y)) * 1e6
-        nbytes, nz = sell_bytes(bids, win, pos, vals, n)
-        slabs = (pos.numel() + vals.numel()) * 4
+        ms = cuda_ms(lambda: sell_spmv(*pack, x, y))
+        pms = cuda_ms(lambda: sell_spmv_ref(*pack, x, r))
+        hus = host_s(lambda: sell_spmv(*pack, x, y)) * 1e6
+        nbytes, nread, slabs, nz = sell_bytes(pack, n)
         if tally:
             b = record("sell_spmv", err, ms, pms, 0.0, nbytes, 2 * nz)
         else:
             b, _ = bound_ms(nbytes, 2 * nz)
         tot_ms, tot_pms, tot_bytes, tot_b = (tot_ms + ms, tot_pms + pms,
                                              tot_bytes + nbytes, tot_b + b)
+        tot_read += nread
+        tot_nz += nz
         slab_bytes += slabs
         log(f"[7] sell_spmv {label} S={S} NB={NB} TW={win.shape[1]}: "
             f"max_abs_err {err:.3e} (rel {rel:.1e}), kernel {ms:.4f} ms, "
             f"plain {pms:.4f} ms, bound {b:.4f} ms ({nbytes / 1e6:.1f} MB "
-            f"needed; slabs with padding {slabs / 1e6:.1f} MB), wrapper "
-            f"host {hus:.1f} us/call")
+            f"needed; the kernel reads {nread / 1e6:.1f} MB; slabs with "
+            f"padding {slabs / 1e6:.1f} MB), wrapper host {hus:.1f} us/call")
+    if not tot_read <= SELL_READ_MAX * tot_bytes:
+        raise AssertionError(
+            f"sell_spmv {label}: the kernel reads {tot_read / 1e6:.1f} MB, "
+            f"over {SELL_READ_MAX} x the {tot_bytes / 1e6:.1f} MB needed")
     lib = _library(A_perm)
     lms = cuda_ms(lambda: lib(x))
     if tally:
@@ -799,7 +914,11 @@ def kernels_sell(plan, label: str, A_perm: CSCMatrix,
         f"kernel {tot_ms:.4f} ms, plain {tot_pms:.4f} ms, cuSPARSE "
         f"{lms:.4f} ms (the whole product), bound {tot_b:.4f} ms "
         f"({tot_bytes / 1e6:.1f} MB needed), {tot_bytes / tot_ms / 1e6:.0f} "
-        f"GB/s on them, slabs with padding {slab_bytes / 1e6:.1f} MB")
+        f"GB/s on them; the kernel reads {tot_read / 1e6:.1f} MB = "
+        f"{tot_read / tot_bytes:.3f} x needed, {tot_read / tot_ms / 1e6:.0f} "
+        f"GB/s; slabs with padding {slab_bytes / 1e6:.1f} MB; with 4-byte "
+        f"positions, as the slabs and CSR hold them, the product would "
+        f"need {(tot_bytes + 2 * tot_nz) / 1e6:.1f} MB")
     return tot_ms, tot_bytes
 
 
@@ -844,8 +963,7 @@ SPMV_CASES = [
 def spmv_case(name: str, A: CSCMatrix, mode: str, kname) -> tuple:
     """Phase 8 for one matrix (the counted path), then phase 7 on its
     plan.  Returns (plan, launches)."""
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    base = fresh_memory()
     x_np = np.random.default_rng(3).normal(size=A.n)
     yref = A.toscipy() @ x_np                        # float64
     reset_launches()
@@ -893,6 +1011,7 @@ def spmv_case(name: str, A: CSCMatrix, mode: str, kname) -> tuple:
                 cuda_ms(run, reps=1, runs=5) / 50e3)
 
     t_apply, t_dev = loop(plan.apply)
+    t_host = host_s(lambda: 0.125 * plan.apply(x0), reps=50)
     lib = _library(A)
     t_lib, _ = loop(lib)
     kern = ""
@@ -912,11 +1031,13 @@ def spmv_case(name: str, A: CSCMatrix, mode: str, kname) -> tuple:
         f"{t_apply * 1e6:.1f} us (50-apply y-carry, median of 5) = "
         f"{plan.bytes_min / t_apply / 1e9:.0f} GB/s on bytes_min "
         f"({plan.bytes_min / 1e6:.1f} MB), of it device {t_dev * 1e6:.1f} "
-        f"us (idle {1 - t_dev / t_apply:.2f}){kern}, cuSPARSE "
+        f"us (idle {1 - t_dev / t_apply:.2f}) and the host takes "
+        f"{t_host * 1e6:.1f} us to queue one{kern}, cuSPARSE "
         f"{t_lib * 1e6:.1f} us (same loop), spill "
         f"{plan.spill / A.nnz:.2e}, waste "
         f"{plan.waste_ratio:.3f}, peak device memory {peak / 2**20:.0f} "
-        f"MiB, launches {counts}")
+        f"MiB (of it {base:.0f} MiB held before the case), launches "
+        f"{counts}")
     return plan, counts
 
 
@@ -948,6 +1069,9 @@ def phase_spmv() -> dict:
             kernels_sell(p2, f"{name} v2", A, tally=False)
         log(f"[8] {name}: matrix made in {t_make:.2f} s")
         prev, prev_A = plan, A
+    s = STATS["sell_spmv"]
+    yardstick("sell_spmv", "both kNN cases against cuSPARSE CSR", s["ms"],
+              s["library_ms"])
     return totals
 
 
@@ -959,29 +1083,61 @@ def timed(label: str, fn, *args):
     return out
 
 
+PHASES = ("3", "4", "5", "6", "8", "9", "10", "11")
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + " ".join(PHASES)
+                    + " (phase 7 runs inside 8); a subset prints no result "
+                    "lines")
+    want = set(ap.parse_args().phases.split(","))
+    if not want <= set(PHASES):
+        ap.error(f"unknown phases {sorted(want - set(PHASES))}")
     t_start = time.perf_counter()
     timed("1", phase_device)
     timed("2", phase_build)
-    A = grid_spd_3d(24)
-    t0 = time.perf_counter()
-    F = SuperscanCholesky(A, order=1, device=DEV)
-    t_plan = time.perf_counter() - t0
-    timed("3", phase_kernels, F.plan)
-    timed("4", phase_canonical, F, A, t_plan)
-    del F
-    torch.cuda.empty_cache()
-    counts = timed("5", phase_large)
-    timed("6", phase_failure)
-    spmv_counts = timed("7+8", phase_spmv)
-    for name in ("dia_spmv", "sell_spmv", "bell_spmv"):
-        counts[name] = spmv_counts[name]
-    timed("9", phase_supernodal)
-    tiled_counts = timed("10", phase_tiled)
-    counts["chol_tiles"] += tiled_counts["chol_tiles"]
-    counts["trsm_tiles"] = tiled_counts["trsm_tiles"]
-    timed("11", phase_updown)
+    counts = {name: 0 for name in KERNELS}
+    step_chol = None
+    if want & {"3", "4"}:
+        A = grid_spd_3d(24)
+        t0 = time.perf_counter()
+        F = SuperscanCholesky(A, order=1, device=DEV)
+        t_plan = time.perf_counter() - t0
+        if "3" in want:
+            step_chol, _ = timed("3", phase_kernels, F.plan)
+        if "4" in want:
+            timed("4", phase_canonical, F, A, t_plan)
+        del F
+        torch.cuda.empty_cache()
+    if "5" in want:
+        counts, plan48 = timed("5", phase_large)
+        if step_chol is not None:
+            timed("3, g=48 batches", phase_kernels_large, plan48, step_chol)
+        del plan48
+    if "6" in want:
+        timed("6", phase_failure)
+    if "8" in want:
+        spmv_counts = timed("7+8", phase_spmv)
+        for name in ("dia_spmv", "sell_spmv", "bell_spmv"):
+            counts[name] = spmv_counts[name]
+    if "9" in want:
+        timed("9", phase_supernodal)
+    if "10" in want:
+        tiled_counts = timed("10", phase_tiled)
+        counts["chol_tiles"] += tiled_counts["chol_tiles"]
+        counts["trsm_tiles"] = tiled_counts["trsm_tiles"]
+    if "11" in want:
+        timed("11", phase_updown)
     log(f"[12] wall time {time.perf_counter() - t_start:.1f} s")
+    if want != set(PHASES):
+        log(f"partial run (phases {sorted(want, key=PHASES.index)}): no "
+            f"result lines")
+        return
+    idle = [name for name, c in counts.items() if c == 0]
+    if idle:
+        raise AssertionError(f"never launched on a main path: {idle}")
     kernels = []
     for name, k in KERNELS.items():
         s = STATS[name]
@@ -992,7 +1148,7 @@ def main() -> None:
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by=("bytes" if s["bytes_ms"] >= s["ops_ms"]
                       else "operations"),
-            library_ms=s["library_ms"]))
+            library_ms=s["library_ms"], chain_ms=s["chain_ms"] or None))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

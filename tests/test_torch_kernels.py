@@ -20,6 +20,7 @@ from tpusparse.device.kernels.trsm_tile import \
 from tpusparse_torch.device.kernels import (bell_spmv, bell_spmv_ref,
                                             chol_tiles, chol_tiles_ref,
                                             dia_spmv, dia_spmv_ref,
+                                            sell_pack, sell_slab_ref,
                                             sell_spmv, sell_spmv_ref,
                                             trsm_tiles, trsm_tiles_batched,
                                             trsm_tiles_batched_ref,
@@ -72,6 +73,21 @@ def test_chol_nan_contract(rng):
     good = [0, 1, 3]
     assert np.isfinite(L[good]).all()
     assert _rel(L[good], Lj[good]) <= 1e-5
+
+
+@pytest.mark.parametrize("B,nt,bad", [(8, 11, 5), (128, 3, 1)])
+def test_chol_nan_contract_middle_of_batch(rng, B, nt, bad):
+    """A non-SPD tile between SPD ones, at the smallest and the largest
+    tile (on the card the small tiles share a thread block)."""
+    A = _spd_tiles(rng, nt, B)
+    A[bad, B // 2, B // 2] = -A[bad, B // 2, B // 2]
+    L = chol_tiles(torch.from_numpy(A)).numpy()
+    Lj = np.asarray(jnp.linalg.cholesky(jnp.asarray(A)))
+    assert not np.isfinite(L[bad][np.tril(np.ones((B, B), bool))]).any()
+    good = [t for t in range(nt) if t != bad]
+    assert np.isfinite(L[good]).all()
+    assert _rel(L[good], Lj[good]) <= 1e-5
+    assert np.all(np.triu(L[good], 1) == 0)
 
 
 def test_trsm_ref_matches_pallas_kernel(rng):
@@ -257,14 +273,17 @@ def test_sell_ref_matches_pallas_kernel(rng, monkeypatch, version):
         call = build_sell_call(NB, S, ntiles, win.shape[1], version=version)
         out = np.asarray(call(jnp.asarray(win), jnp.asarray(pos),
                               jnp.asarray(vals), xt)).reshape(NB, 128)
-        y = torch.full((n,), float("nan"))
-        sell_spmv_ref(*(torch.from_numpy(a) for a in (bids, win, pos, vals)),
-                      torch.from_numpy(x), y)
         rows = bids[:, None].astype(np.int64) * 128 + np.arange(128)
         keep = rows < n
-        assert _rel(y.numpy()[rows[keep]], out[keep]) <= 1e-5
-        # rows of the other classes are left as they were
-        assert np.isnan(np.delete(y.numpy(), rows[keep])).all()
+        # the padded slabs, and the compact pack made from them
+        for ref, args in ((sell_slab_ref, (bids, win, pos, vals)),
+                          (sell_spmv_ref, sell_pack(bids, win, pos, vals)),
+                          (sell_spmv, sell_pack(bids, win, pos, vals))):
+            y = torch.full((n,), float("nan"))
+            ref(*(torch.from_numpy(a) for a in args), torch.from_numpy(x), y)
+            assert _rel(y.numpy()[rows[keep]], out[keep]) <= 1e-5
+            # rows of the other classes are left as they were
+            assert np.isnan(np.delete(y.numpy(), rows[keep])).all()
     # the whole product of a port plan built from the JAX plan's buffers
     from tpusparse_torch.device import plan_from_numpy
     plan = plan_from_numpy(dict(m=n, n=n, mode="sell", perm=jp.perm), bufs,
@@ -314,22 +333,39 @@ def test_dia_spmv_rejects(bad):
         dia_spmv(bands, offs, x)
 
 
-@pytest.mark.parametrize("bad", ["S_shape", "win", "y", "dtype"])
+@pytest.mark.parametrize("bad", ["S_shape", "win", "y", "dtype", "off",
+                                 "rows", "cvals", "TW33"])
 def test_sell_spmv_rejects(bad):
     NB, S, n = 2, 2, 256
-    args = dict(bids=torch.arange(NB, dtype=torch.int32),
-                win=torch.zeros(NB, 1, dtype=torch.int32),
-                pos=torch.zeros(NB, S, 8, 128, dtype=torch.int32),
-                vals=torch.zeros(NB, S, 8, 128), x=torch.ones(n),
+    pack = sell_pack(np.arange(NB, dtype=np.int32),
+                     np.zeros((NB, 1), np.int32),
+                     np.zeros((NB, S, 8, 128), np.int32),
+                     np.ones((NB, S, 8, 128), np.float32))
+    args = dict(zip(("bids", "win", "off", "start", "rows", "cpos", "cvals"),
+                    map(torch.from_numpy, pack)), x=torch.ones(n),
                 y=torch.zeros(n))
+    sell_spmv(**args)                           # the pack itself is taken
+    assert torch.equal(args["y"], torch.full((n,), 16.0))
     if bad == "S_shape":
-        args["pos"] = torch.zeros(NB, S, 4, 128, dtype=torch.int32)
+        args["start"] = args["start"][:, :-4].contiguous()
     elif bad == "win":
         args["win"] = torch.zeros(NB + 1, 1, dtype=torch.int32)
     elif bad == "y":
         args["y"] = torch.zeros(n - 1)
+    elif bad == "dtype":
+        args["cpos"] = args["cpos"].int()
+    elif bad == "off":
+        args["off"] = args["off"][:-1].contiguous()
+    elif bad == "rows":
+        args["rows"] = args["rows"].int()
+    elif bad == "TW33":                         # a position needs 16 bits
+        args["win"] = torch.zeros(NB, 33, dtype=torch.int32)
+        with pytest.raises(ValueError):
+            sell_pack(pack[0], np.zeros((NB, 33), np.int32),
+                      np.zeros((NB, S, 8, 128), np.int32),
+                      np.ones((NB, S, 8, 128), np.float32))
     else:
-        args["pos"] = args["pos"].long()
+        args["cvals"] = args["cvals"][:-1].contiguous()
     with pytest.raises((TypeError, ValueError)):
         sell_spmv(**args)
 

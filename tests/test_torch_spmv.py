@@ -23,8 +23,9 @@ import tpusparse_torch
 from tpusparse_torch.core import CSCMatrix as TCSC
 from tpusparse_torch.device import plan_from_numpy, plan_to_numpy
 from tpusparse_torch.device.formats import to_bell
-from tpusparse_torch.device.kernels import (bell_spmv, dia_spmv,
-                                            sell_spmv)
+from tpusparse_torch.device.kernels import (bell_spmv, dia_spmv, sell_pack,
+                                            sell_slab_ref, sell_spmv,
+                                            sell_spmv_ref)
 from helpers import random_csc, random_spd
 
 TOL = 1e-5            # y, relative to max|y_jax|
@@ -289,6 +290,140 @@ def test_sell_identity_first_ordering(rng):
     ys = _apply_twin(tps, jps, x)
     ysref = gaxpy(As, x, np.zeros(n))
     assert np.abs(ys - ysref).max() / np.abs(ysref).max() < 1e-5
+
+
+# ------------------------------------------------------- compact pack
+def _odd_blocks(rng):
+    """n = 640: block 0 has rows of one length (3 entries), block 1 is
+    empty, block 2 mixes lengths 0..12 and stores explicit zeros, blocks
+    3 and 4 are a random pattern."""
+    n = 640
+    r, c, v = [], [], []
+    for i in range(128):
+        for d in (0, 1, 2):
+            r.append(i), c.append((i + d) % 128), v.append(rng.normal())
+    for i in range(256, 384):
+        for d in range((i * 7) % 13):
+            r.append(i), c.append(256 + (i + 5 * d) % 128)
+            v.append(0.0 if d == 2 else rng.normal())
+    R = sp.random(256, 256, density=0.03, random_state=11, format="coo")
+    r += list(R.row + 384)
+    c += list(R.col + 384)
+    v += list(R.data + 1.0)
+    order = np.lexsort((r, c))
+    r, c, v = (np.asarray(a)[order] for a in (r, c, v))
+    indptr = np.searchsorted(c, np.arange(n + 1))
+    return CSCMatrix(n, n, indptr, r, v.astype(np.float64))
+
+
+_PACK_FIXTURES = {
+    "local": lambda rng: _local_graph(rng),
+    "random": lambda rng: _random_sym(3000, 0.002, 7, 5)[0],
+    "odd_blocks": _odd_blocks,
+}
+
+
+@pytest.mark.parametrize("version", ["1", "2"])
+@pytest.mark.parametrize("fixture", sorted(_PACK_FIXTURES))
+def test_sell_compact_pack(rng, monkeypatch, fixture, version):
+    """The compact pack of the JAX-equal slabs, class by class: its plain
+    version gives what the plain product over the padded slabs gives;
+    the whole plan gives what the JAX plan (its Pallas kernel in
+    interpret mode) and scipy give; and the host buffers come back bit
+    for bit from a round trip through plan_from_numpy."""
+    monkeypatch.setenv("TPUSPARSE_SELL_KERNEL", version)
+    A = _PACK_FIXTURES[fixture](rng)
+    n = A.n
+    tp, jp = _twin(A, "sell")
+    assert tp.mode == "sell"
+    x = rng.normal(size=n).astype(np.float32)
+    xt = torch.from_numpy(x)
+    bufs = [np.asarray(b) for b in jp._bufs]
+    assert (len(bufs) - 5) % 4 == 0 and len(tp._bufs) == 5 + 7 * (
+        (len(bufs) - 5) // 4)
+    for ci in range((len(bufs) - 5) // 4):
+        slabs = bufs[5 + 4 * ci:9 + 4 * ci]
+        pack = sell_pack(*slabs)
+        for a, t in zip(pack, tp._bufs[5 + 7 * ci:12 + 7 * ci]):
+            assert a.dtype == t.numpy().dtype and np.array_equal(a, t.numpy())
+        ys = torch.full((n,), float("nan"))
+        yc = torch.full((n,), float("nan"))
+        sell_slab_ref(*map(torch.from_numpy, slabs), xt, ys)
+        sell_spmv_ref(*map(torch.from_numpy, pack), xt, yc)
+        assert np.array_equal(np.isnan(ys.numpy()), np.isnan(yc.numpy()))
+        rows = ~np.isnan(ys.numpy())
+        assert rows.sum() == min(n, slabs[0].max() * 128 + 128) - (
+            slabs[0].max() * 128) + (slabs[0].size - 1) * 128
+        _close(yc.numpy()[rows], ys.numpy()[rows])
+        # every real slab entry is in the pack, and nothing else
+        real = slabs[3] != 0
+        assert pack[5].size == real.sum() == pack[2][-1]
+        assert np.array_equal(np.sort(pack[6]), np.sort(slabs[3][real]))
+    yref = A.toscipy() @ x.astype(np.float64)
+    y = _apply_twin(tp, jp, x)
+    assert np.abs(y - yref).max() <= TOL * np.abs(yref).max()
+    p = tp.perm
+    _close(tp.apply_permuted(x[p]), yref[p])
+    _close(tp.gaxpy(x, np.ones(n)), yref + 1.0)
+    tq = plan_from_numpy(*plan_to_numpy(tp), "cpu")
+    _same_plan(tq, jp)
+    assert np.array_equal(_np(tq.apply(x)), y)
+
+
+def test_sell_pack_layout():
+    """One block by hand: rows sorted by length (stable, longest first),
+    a row's entries in slab order, depth after depth."""
+    pos = np.zeros((1, 1, 8, 128), np.int32)
+    vals = np.zeros((1, 1, 8, 128), np.float32)
+    # lane 3: two entries, lane 7: three, lane 9: two, lane 100: one
+    for lane, k in ((3, 2), (7, 3), (9, 2), (100, 1)):
+        for q in range(k):
+            pos[0, 0, q, lane] = 10 * lane + q
+            vals[0, 0, q, lane] = lane + q / 10
+    bids, win, off, start, rows, cpos, cvals = sell_pack(
+        np.array([4], np.int32), np.zeros((1, 2), np.int32), pos, vals)
+    assert (off.dtype, start.dtype, rows.dtype, cpos.dtype, cvals.dtype) == (
+        np.int32, np.int16, np.uint8, np.int16, np.float32)
+    assert off.tolist() == [0, 8]
+    assert start[0].tolist() == [0, 4, 7, 8, 8, 8, 8, 8, 8]
+    assert rows[0, :5].tolist() == [7, 3, 9, 100, 0]
+    assert cpos.tolist() == [70, 30, 90, 1000, 71, 31, 91, 72]
+    assert np.allclose(cvals, [7, 3, 9, 100, 7.1, 3.1, 9.1, 7.2])
+    x = np.arange(2048, dtype=np.float32)
+    y = torch.zeros(2048)
+    sell_spmv(*map(torch.from_numpy, (bids, win, off, start, rows, cpos,
+                                      cvals)), torch.from_numpy(x), y)
+    want = np.zeros(2048)
+    want[512 + 7] = 7 * 70 + 7.1 * 71 + 7.2 * 72
+    want[512 + 3] = 3 * 30 + 3.1 * 31
+    want[512 + 9] = 9 * 90 + 9.1 * 91
+    want[512 + 100] = 100 * 1000
+    assert np.allclose(y.numpy(), want, rtol=1e-6)
+
+
+def test_sell_pack_bytes(rng):
+    """At about 9 entries a row the pack holds at most 1.15 times the
+    bytes the product needs (entries at 4 + 2 bytes, bids, win, the x
+    entries read and the y rows written, once each); the padded slabs
+    hold far more."""
+    A = _local_graph(rng, 4000)
+    assert 8 <= A.nnz / A.n <= 10
+    tp = tpusparse_torch.spmv_plan(_port(A), mode="sell", device="cpu")
+    _, bufs = plan_to_numpy(tp)
+    flat = [t.numpy() for t in tp._bufs[5:]]
+    need = read = slab = 0
+    for ci in range(len(flat) // 7):
+        bids, win, off, start, rows, cpos, cvals = flat[7 * ci:7 * ci + 7]
+        blk = np.repeat(np.arange(bids.size), np.diff(off))
+        j = win[blk, cpos >> 10].astype(np.int64) * 1024 + (cpos & 1023)
+        ny = (bids[:, None].astype(np.int64) * 128 + rows < A.n).sum()
+        need += cpos.size * 6 + (bids.size + win.size + np.unique(j).size
+                                 + ny) * 4
+        read += sum(a.nbytes for a in flat[7 * ci:7 * ci + 7]) + (
+            np.unique(j).size + ny) * 4
+        slab += bufs[7 + 4 * ci].nbytes + bufs[8 + 4 * ci].nbytes
+    assert need < read <= 1.15 * need
+    assert slab > 1.5 * need
 
 
 # ------------------------------------------------------- seg (power-law)

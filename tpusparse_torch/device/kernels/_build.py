@@ -5,8 +5,10 @@ an object of its own, one process per source, all started together, and
 links the objects into one shared library with a plain C interface,
 under ``build/tpusparse_torch/`` at the root of the checkout (listed in
 .gitignore), keyed by a hash of the sources and flags; the library is
-loaded with ctypes.  A missing ``nvcc`` or a failed build raises: there
-is no fallback.  ``CUDA_HOME`` picks the toolkit.
+loaded with ctypes.  What ptxas says of every kernel (registers, shared
+memory, spills) goes to ``<library>.log`` beside it.  A missing ``nvcc``
+or a failed build raises: there is no fallback.  ``CUDA_HOME`` picks the
+toolkit.
 
 Pointers and the stream go to the C entry points as ``c_void_p`` (from
 ``tensor.data_ptr()`` and ``torch.cuda.current_stream().cuda_stream``);
@@ -32,16 +34,17 @@ _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(os.path.dirname(_PKG), "build", "tpusparse_torch")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # entry point -> argtypes; every entry point returns an int (CUDA error)
 _ENTRY_POINTS = {
     "tpt_chol_tiles": [_P, _P, _I, _I, _P],
+    "tpt_chain_probe": [_P, _I, _I, _P],
     "tpt_trsm_tiles_batched": [_P, _P, _P, _I, _I, _I, _P],
     "tpt_trsm_tiles": [_P, _P, _P, _I, _I, _I, _P],
     "tpt_dia_spmv": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "tpt_sell_spmv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tpt_sell_spmv": [_P] * 9 + [_I] * 4 + [_P],
     "tpt_bell_spmv": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
@@ -72,19 +75,21 @@ def _target() -> str:
     return os.path.join(_BUILD, f"libtpt_kernels_{h.hexdigest()[:16]}.so")
 
 
-def _run(cmds: list) -> None:
+def _run(cmds: list) -> str:
     """Runs the commands side by side; raises on the first that fails,
-    after every one has ended."""
+    after every one has ended.  Returns what they wrote to stderr."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for c in cmds]
-    fails = []
+    fails, said = [], []
     for c, p in zip(cmds, procs):
         out, err = p.communicate()
+        said.append(err)
         if p.returncode != 0:
             fails.append(f"{' '.join(c)} -> {p.returncode}:\n{out}\n{err}")
     if fails:
         raise RuntimeError("nvcc failed:\n" + "\n".join(fails))
+    return "".join(said)
 
 
 def _compile(so: str) -> None:
@@ -95,13 +100,15 @@ def _compile(so: str) -> None:
     objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
     t0 = time.perf_counter()
     try:
-        _run([[nvcc, *NVCC_FLAGS, "-c", s, "-o", o]
-              for s, o in zip(srcs, objs)])
+        said = _run([[nvcc, *NVCC_FLAGS, "-c", s, "-o", o]
+                     for s, o in zip(srcs, objs)])
         _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tmp}.tmp", *objs]])
     finally:
         for o in objs:
             if os.path.exists(o):
                 os.remove(o)
+    with open(f"{so}.log", "w") as f:
+        f.write(said)
     os.replace(f"{tmp}.tmp", so)         # atomic: no half-written library
     build_seconds = time.perf_counter() - t0
 

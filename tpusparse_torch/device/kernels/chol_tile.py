@@ -1,5 +1,5 @@
 """Batched lower Cholesky of (nt, B, B) tiles: the chol phase of the
-superscan factorization.
+superscan factorization and the panel factor of the fixed-tile engine.
 
 Counterpart of tpusparse/device/kernels/chol_tile.py (the Pallas kernel
 ``_chol_tile_kernel``).  On a CUDA tensor ``chol_tiles`` launches the
@@ -52,6 +52,8 @@ def chol_tiles(tiles: torch.Tensor) -> torch.Tensor:
     nt, B, _ = tiles.shape
     if nt == 0:
         return out
+    if tiles.data_ptr() % 16:       # the kernel reads 16 bytes at a time
+        tiles = tiles.clone()
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check(lib.tpt_chol_tiles(tiles.data_ptr(), out.data_ptr(), nt,

@@ -8,9 +8,12 @@ holds them to each other).  The modes and what runs on the device:
 
 - ``dia``: banded, gather-free; the DIA kernel (kernels.dia_spmv).
 - ``sell``: general irregular pattern; identity or RCM ordering, SELL-128
-  slabs per S class through the SELL kernel (kernels.sell_spmv), which
-  writes its block sums straight to y, then the out-of-window COO spill
-  as ``index_add_`` and, under RCM, the two permutations as gathers.
+  slabs per S class.  The slabs stay on the host (plan_to_numpy returns
+  them); at upload each class is packed once into the compact form that
+  holds only its real entries (kernels.sell_pack), and the SELL kernel
+  (kernels.sell_spmv) reads that and writes its block sums straight to
+  y; then the out-of-window COO spill as ``index_add_`` and, under RCM,
+  the two permutations as gathers.
 - ``bell``: block-structured; 128 x 128 dense tiles through the BELL
   kernel (kernels.bell_spmv).
 - ``seg``: power-law row degrees; row-split ELL classes as torch
@@ -41,8 +44,8 @@ import torch
 from ..core.matrix import CSCMatrix
 from .config import DTYPE, round_up
 from .formats import dia_offsets, to_bell, to_dia, to_ell
-from .kernels import bell_spmv, dia_spmv, sell_spmv
-from .kernels.sell_spmv import TILE
+from .kernels import bell_spmv, dia_spmv, sell_pack, sell_spmv
+from .kernels.sell_spmv import PACK, TILE
 
 __all__ = ["SpmvPlan", "spmv_plan", "gaxpy_device", "plan_to_numpy",
            "plan_from_numpy"]
@@ -55,7 +58,10 @@ _FIELDS = ("m", "n", "mode", "flops", "bytes_min", "bytes_padded",
 @dataclass
 class SpmvPlan:
     """Once-per-pattern SpMV plan: device buffers + apply.  ``_bufs``
-    holds the buffers in the JAX plan's order (see plan_from_numpy)."""
+    holds the buffers in the JAX plan's order (see plan_from_numpy),
+    except that a sell plan holds each class's compact pack in place of
+    its slabs and keeps the host buffers it was made from in
+    ``_host_bufs``."""
     m: int
     n: int
     mode: str
@@ -67,6 +73,7 @@ class SpmvPlan:
     perm: np.ndarray = None         # sell: row/col permutation
     offsets: np.ndarray = None      # dia: the diagonals, sorted
     _bufs: tuple = ()
+    _host_bufs: tuple = None        # sell: the planner's buffers
     _apply: Callable = None
     _kernel: Callable = None        # sell: permuted-space matvec
 
@@ -129,8 +136,8 @@ def _sell_applies(n: int, identity: bool):
         each writing its blocks' rows) + the COO spill."""
         *flat, xp = bufs_and_xp
         y = torch.empty(n, dtype=DTYPE, device=xp.device)
-        for ci in range(len(flat) // 4):
-            sell_spmv(*flat[4 * ci:4 * ci + 4], xp, y)
+        for ci in range(len(flat) // PACK):
+            sell_spmv(*flat[PACK * ci:PACK * (ci + 1)], xp, y)
         if sr_d.numel():
             y.index_add_(0, sr_d, sv_d * xp[sc_d])
         return y
@@ -364,15 +371,24 @@ def plan_from_numpy(meta: dict, bufs: Sequence[np.ndarray],
     plan's ``_bufs`` order: sell ``sr, sc, sv, p, pinv`` then ``bids,
     win, pos, vals`` per S class; dia ``bands``; bell ``vals,
     tile_cols``; ell ``vals, cols``; seg ``vals, cols, rid`` per class.
-    The buffers are copied to ``device`` as they are (dtypes kept)."""
+    The buffers are copied to ``device`` as they are (dtypes kept),
+    except a sell plan's slabs: each class goes to the device as its
+    compact pack (kernels.sell_pack), and the plan keeps ``bufs``
+    themselves, not copies, on the host for plan_to_numpy."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("spmv_plan: device 'cuda' requested but "
                            "torch.cuda.is_available() is False; pass "
                            "device='cpu' for the plain versions")
-    tb = tuple(torch.tensor(np.asarray(b), device=dev) for b in bufs)
     meta = dict(meta)
     mode, m, n = meta["mode"], meta["m"], meta["n"]
+    host = [np.asarray(b) for b in bufs]
+    kept = None
+    if mode == "sell":
+        kept = tuple(host)
+        host = host[:5] + [a for ci in range((len(host) - 5) // 4)
+                           for a in sell_pack(*host[5 + 4 * ci:9 + 4 * ci])]
+    tb = tuple(torch.tensor(b, device=dev) for b in host)
     kernel = None
     if mode == "dia":
         offs_d = torch.tensor(np.asarray(meta["offsets"], np.int32),
@@ -395,13 +411,17 @@ def plan_from_numpy(meta: dict, bufs: Sequence[np.ndarray],
         raise ValueError(f"unknown SpMV mode {mode!r}")
     fields = {f: meta.get(f) for f in _FIELDS}
     fields["spill"] = fields["spill"] or 0
-    return SpmvPlan(**fields, _bufs=tb, _apply=apply, _kernel=kernel)
+    return SpmvPlan(**fields, _bufs=tb, _host_bufs=kept, _apply=apply,
+                    _kernel=kernel)
 
 
 def plan_to_numpy(plan: SpmvPlan):
     """(meta, bufs): the plan's fields and its buffers as host arrays, in
-    the JAX plan's ``_bufs`` order (see plan_from_numpy)."""
+    the JAX plan's ``_bufs`` order (see plan_from_numpy); for a sell
+    plan, the host buffers it was made from."""
     meta = {f: getattr(plan, f) for f in _FIELDS}
+    if plan._host_bufs is not None:
+        return meta, list(plan._host_bufs)
     return meta, [b.detach().cpu().numpy() for b in plan._bufs]
 
 
