@@ -14,6 +14,8 @@ Phases (any failure raises, so the exit code is nonzero):
   1. device: a CUDA card is present; prints nvidia-smi's name and power
      limit;
   2. build: nvcc builds tpusparse_torch/csrc/*.cu into build/ (first use);
+     ptxas's registers and spills per kernel; no instance of the LU tile
+     kernel may spill;
   3. kernels vs plain versions on the card, at every chol W and trsm
      (H, W) of the canonical plan, at its largest per-step batch, within
      1e-5 relative (W=128 is one tile, the (1, 128, 128) every panel of
@@ -79,23 +81,35 @@ share and the longest kernels.
      the card at every W of the g=40 LU plan (phase 13's), at its largest
      per-step batch, for tol 0 (diagonally dominant tiles), 0.001 (rows
      swapped so that pivoting must undo them) and 1.0 (random normal
-     tiles): P identical, F within 1e-5 relative; times of kernel, plain
-     version and torch.linalg.lu_factor_ex; the NaN contract (a NaN tile
-     between good ones at W = 16 and 128, P = I at tol 0) and the
-     tiny-pivot contract (a pivot below eps becomes +-eps); then
-     trsm_tiles_batched at every (H, W) of that plan's trsm phases in
-     both of the LU's operand forms (as in 14, off the kernels line);
+     tiles): F bit for bit, P identical; times of kernel, plain version,
+     torch.linalg.lu_factor_ex and an empty launch of the same grid
+     (the launch floor), and the chain floor (W LU columns of a one-warp
+     probe); yardstick: lu_tiles no slower than lu_factor_ex at any
+     shape; tie tiles at W = 8, 24, 32, 40 and 128 (equal candidates in
+     moved and unmoved rows, the diagonal exactly at tol * max), bit for
+     bit; the in-place pool entry (lu_tiles_pool, padded slots on the
+     pad block) against its plain version, both pools bit for bit; the
+     NaN contract (a NaN tile between good ones at W = 8, 16 and 128,
+     P = I at tol 0) and the tiny-pivot contract (a pivot below eps
+     becomes +-eps, W = 8, 16, 128); then trsm_tiles_batched at every
+     (H, W) of that plan's trsm phases in both of the LU's operand forms
+     (as in 14, off the kernels line);
  13. the BENCH_r05 LU cell: SuperscanLU(conv_diff_3d(40), order 0,
      max_segments 12), plan fields equal to BENCH_r05's, the launch
-     counters reset just before the first factor: lu_tiles once per
-     non-empty panel-LU phase of the plan and trsm_tiles_batched twice
-     per non-empty trsm phase, no other kernel; factor first and warm,
-     growth, refined residual <= 1e-14, peak device memory and a
-     torch.profiler window over the last segments of a warm factor that
-     hold a tenth of its steps (H1's and B2's kernel time named);
+     counters reset just before the first factor: lu_tiles (through
+     lu_tiles_pool) once per non-empty panel-LU phase of the plan and
+     trsm_tiles_batched twice per non-empty trsm phase, no other kernel;
+     factor first and warm, growth, refined residual <= 1e-14, peak
+     device memory and a torch.profiler window over the last segments of
+     a warm factor that hold a tenth of its steps (H1's and B2's kernel
+     time named); then two factors with deterministic index_add_, one
+     through lu_tiles_pool and one through the gather path around
+     lu_tiles: every pool bit for bit;
  14. the lusol entry point: lusol(1, A, b) on the same matrix (TpuLU ->
      SuperscanLU order 1; both LU kernels must launch), then lu_tiles at
-     tol 1 at every W of that order-1 plan and trsm_tiles_batched at
+     tol 0, 0.001 and 1 at every W of that order-1 plan (as in 12, tol 1
+     to the kernels line; yardstick per shape and over the kernels
+     line's lu_tiles shapes) and trsm_tiles_batched at
      every (H, W) of its trsm phases, in both of the LU's operand forms
      (U_D^T and the unit lower L_D; off the kernels line); on a mixed BTF
      matrix whose dense blocks factor on the card beside a sparse one,
@@ -132,13 +146,14 @@ import torch
 import tpusparse_torch
 from tpusparse_torch.core import CSCMatrix
 from tpusparse_torch.demo import resid_metric
-from tpusparse_torch.device import solvers, superscan
+from tpusparse_torch.device import solvers, superscan, superscan_lu
 from tpusparse_torch.device.chol_plan import plan_cholesky
 from tpusparse_torch.device.chol_tpu import TpuCholesky
 from tpusparse_torch.device.kernels import (_build, bell_spmv, bell_spmv_ref,
                                             chol_tiles, chol_tiles_ref,
                                             dia_spmv, dia_spmv_ref,
-                                            lu_tiles, lu_tiles_ref,
+                                            lu_tiles, lu_tiles_pool,
+                                            lu_tiles_pool_ref, lu_tiles_ref,
                                             sell_spmv, sell_spmv_ref,
                                             trsm_tiles, trsm_tiles_batched,
                                             trsm_tiles_batched_ref,
@@ -448,10 +463,20 @@ def phase_build() -> None:
         f" s, one process per source) -> {_build._target()}")
     with open(_build._target() + ".log") as f:      # ptxas -v, per kernel
         said = f.read().replace("ptxas info    : ", "").splitlines()
+    lu, spills = 0, []
     for i, line in enumerate(said[:-2]):
         if line.startswith("Function properties for"):
             log(f"[2] ...{line.split()[-1][-44:]}: {said[i + 2].strip()}; "
                 f"{said[i + 1].strip()}")
+            if "lu_tile_kernel" in line:
+                lu += 1
+                if not said[i + 1].strip().startswith(
+                        "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                        "spill loads"):
+                    spills.append(line.split()[-1])
+    if lu != 16 or spills:
+        raise AssertionError(f"{lu} lu_tile_kernel instances (want 16), "
+                             f"with local memory: {spills}")
 
 
 def _tile_shapes(plan):
@@ -982,26 +1007,95 @@ def _lu_tiles_input(rng, nt: int, W: int, tol: float) -> torch.Tensor:
     return torch.from_numpy(D.astype(np.float32)).to(DEV)
 
 
+def _tie_tiles(rng, nt: int, W: int, tol: float) -> torch.Tensor:
+    """Tiles on which every step of the pivoted LU is exact in f32 (each
+    product has a power of two or +-1 for a factor), built as
+    tests/test_torch_kernels.py::_tie_tiles builds them: the rows of an
+    upper triangular T (power-of-two diagonal, entries 0, +-1, +-2, +-4
+    above it) in a random order, so that earlier swaps move many rows; at
+    columns k = 1, 5, 9, ... two candidates of equal |value| (rows T[k]
+    and +-T[k] + T[k + 1]); at column W - 3 the diagonal exactly f32(tol)
+    times the other candidate's |value| (equal to it at tol >= 1)."""
+    M = np.zeros((nt, W, W), np.float32)
+    for t in range(nt):
+        T = np.triu(rng.choice([0.0, 0.0, 1.0, -1.0, 2.0, -2.0, 4.0, -4.0],
+                               size=(W, W)), 1)
+        T += np.diag(2.0 ** rng.integers(0, 4, size=W))
+        rows = T.copy()
+        for k in range(1, W - 1, 4):
+            rows[k + 1] = rng.choice([1.0, -1.0]) * T[k] + T[k + 1]
+        kb = W - 3
+        big = 2.0 ** rng.integers(0, 4)
+        rows[kb, kb] = (np.float32(tol) * np.float32(big) if tol < 1.0
+                        else big)
+        rows[kb, kb + 1:] = 0.0
+        rows[kb + 1] = T[kb + 1]
+        rows[kb + 1, kb] = -big
+        order = np.concatenate([rng.permutation(kb), [kb],
+                                kb + 1 + rng.permutation(W - kb - 1)])
+        M[t] = rows[order]
+    return torch.from_numpy(M).to(DEV)
+
+
 def _eps(D: torch.Tensor) -> float:
     """The pivot floor SuperscanLU.factor passes: f32(1e-8 max|A|)."""
     return float(np.float32(1e-8 * D.abs().max().item()))
 
 
+def lu_bit_equal(D: torch.Tensor, eps: float, tol: float,
+                 label: str) -> tuple:
+    """lu_tiles against lu_tiles_ref on D: raises unless F is bit for bit
+    the plain version's and P identical; returns (P, max |F - plain|)."""
+    F, P = lu_tiles(D, eps, tol)
+    Fr, Pr = lu_tiles_ref(D, eps, tol)
+    err = (F - Fr).abs().max().item()
+    if not torch.equal(P, Pr):
+        raise AssertionError(f"lu_tiles {label}: pivots differ")
+    if not torch.equal(F, Fr):
+        raise AssertionError(f"lu_tiles {label}: F differs from the plain "
+                             f"version by {err:.3e}")
+    return P, err
+
+
+LU_STEP = {}    # {probe kind: ms of one LU column on one warp}
+
+
+def lu_chain_step() -> float:
+    """Milliseconds of one dependent LU column as lu_tiles chains it
+    (tpt_chain_probe kind 2, redux.sync search), measured once a run; kind
+    3, the same column with a butterfly of shuffles, is printed beside it."""
+    if not LU_STEP:
+        LU_STEP.update({k: chain_step_ms(k) for k in (2, 3)})
+        log(f"[12] one dependent LU column on one warp: {LU_STEP[2] * 1e6:.1f}"
+            f" ns with redux.sync (lu_tiles' search), {LU_STEP[3] * 1e6:.1f}"
+            f" ns with a butterfly of shuffles (chain floor of lu_tiles = W "
+            f"times the first)")
+    return LU_STEP[2]
+
+
+def lu_launch_floor_ms(nt: int, W: int) -> float:
+    """Device time of an empty kernel on the grid lu_tiles takes for nt
+    tiles of width W (tpt_lu_empty)."""
+    lib = _build.library()
+
+    def empty():
+        _build.check(lib.tpt_lu_empty(
+            nt, W, torch.cuda.current_stream().cuda_stream), "tpt_lu_empty")
+    return cuda_ms(empty)
+
+
 def lu_shape(rng, W: int, nt: int, tol: float, tally: bool,
              phase: str = "12", plan: str = "g=40 order 0") -> None:
     """One (nt, W, W) of lu_tiles at one tol against its plain version
-    (P identical, F within TOL relative; whether they agree bit for bit
-    is printed), timed beside the plain version and lu_factor_ex.  The
-    bound counts D read once and F and P written once, and (2/3) W^3
-    flops a tile."""
+    (F bit for bit, P identical), timed beside the plain version,
+    lu_factor_ex and an empty launch of the same grid, and held to
+    lu_factor_ex's time.  The bound counts D read once and F and P
+    written once, and (2/3) W^3 flops a tile; the chain floor is W LU
+    columns on one warp."""
     label = f"{plan} W={W} nt={nt} tol={tol}"
     D = _lu_tiles_input(rng, nt, W, tol)
     eps = _eps(D)
-    F, P = lu_tiles(D, eps, tol)
-    Fr, Pr = lu_tiles_ref(D, eps, tol)
-    err, rel = rel_err(F, Fr, f"lu_tiles {label}")
-    if not torch.equal(P, Pr):
-        raise AssertionError(f"lu_tiles {label}: pivots differ")
+    P, err = lu_bit_equal(D, eps, tol, label)
     eye = torch.eye(W, device=DEV)
     if tol == 0.0 and not torch.equal(P, eye.expand_as(P)):
         raise AssertionError(f"lu_tiles {label}: P is not I")
@@ -1010,15 +1104,52 @@ def lu_shape(rng, W: int, nt: int, tol: float, tally: bool,
     ms = cuda_ms(lambda: lu_tiles(D, eps, tol))
     pms = cuda_ms(lambda: lu_tiles_ref(D, eps, tol), reps=3, runs=3)
     lms = cuda_ms(lambda: torch.linalg.lu_factor_ex(D))
+    floor = lu_launch_floor_ms(nt, W)
+    chain = W * lu_chain_step()
     nbytes, flops = 12 * nt * W * W, 2 * nt * W ** 3 / 3
     if tally:
         b = record("lu_tiles", err, ms, pms, lms, nbytes, flops)
+        STATS["lu_tiles"]["chain_ms"] += chain
     else:
         b, _ = bound_ms(nbytes, flops)
-    log(f"[{phase}] lu_tiles {label}: max_abs_err {err:.3e} (rel {rel:.1e}), "
-        f"bit-equal {torch.equal(F, Fr)}, kernel {ms:.4f} ms, plain "
-        f"{pms:.4f} ms, lu_factor_ex {lms:.4f} ms, bound {b:.5f} ms"
+    log(f"[{phase}] lu_tiles {label}: bit-equal (max_abs_err {err:.1e}), "
+        f"kernel {ms:.4f} ms, plain "
+        f"{pms:.4f} ms, lu_factor_ex {lms:.4f} ms, bound {b:.5f} ms, chain "
+        f"floor {chain:.4f} ms, launch floor {floor:.4f} ms"
         f"{'' if tally else ' (off the main path: not in the kernels line)'}")
+    yardstick("lu_tiles", label, ms, lms)
+
+
+def lu_ties(rng, W: int, tol: float) -> None:
+    """lu_tiles on _tie_tiles: equal candidates in moved and unmoved rows,
+    moved pivot rows, the diagonal exactly at tol * max; bit-equal to the
+    plain version, P identical."""
+    D = _tie_tiles(rng, 5, W, tol)
+    lu_bit_equal(D, _eps(D), tol, f"tie tiles W={W} tol={tol}")
+    log(f"[12] lu_tiles tie tiles W={W} tol={tol}: bit-equal, P identical")
+
+
+def lu_pool_entry(rng, W: int, pw: int, tol: float) -> None:
+    """lu_tiles_pool (in place in a pool of rows of width pw, padded slots
+    on the identity pad block) against its plain version: both pools bit
+    for bit."""
+    rows = 6 * W + pw
+    L = torch.from_numpy(rng.normal(size=(rows, pw)).astype(np.float32))
+    L[rows - pw:] = torch.eye(pw)
+    L, U = L.to(DEV), torch.zeros(rows, pw, device=DEV)
+    dbase = torch.tensor([0, 2 * W, rows - pw, W, rows - pw, 4 * W,
+                          rows - pw], device=DEV)
+    L2, U2 = L.clone(), U.clone()
+    eps = _eps(L[:rows - pw])
+    lu_tiles_pool(L, U, dbase, W, eps, tol)
+    lu_tiles_pool_ref(L2, U2, dbase, W, eps, tol)
+    sync()
+    if not (torch.equal(L, L2) and torch.equal(U, U2)):
+        raise AssertionError(f"lu_tiles_pool W={W} pw={pw} tol={tol}: pools "
+                             f"differ from the plain version")
+    log(f"[12] lu_tiles_pool W={W} pw={pw} tol={tol}: {dbase.numel()} slots "
+        f"(3 on the pad block) in place, both pools bit-equal to the plain "
+        f"version")
 
 
 def lu_nan_contract(rng, W: int, nt: int, bad: int, tol: float) -> None:
@@ -1079,10 +1210,17 @@ def phase_lu_kernels(plan) -> None:
     for W, nt in sorted(chol.items()):
         for tol in (0.0, 0.001, 1.0):
             lu_shape(rng, W, nt, tol, tally=tol == 1.0)
+    for W in (8, 24, 32, 40, 128):      # 24 and 40: widths no plan has
+        for tol in (0.001, 1.0):
+            lu_ties(rng, W, tol)
+    for W, pw in ((24, 32), (128, 128)):
+        lu_pool_entry(rng, W, pw, 1.0)
     for tol in (1.0, 0.0):
-        lu_nan_contract(rng, 16, 11, 5, tol)     # four tiles share a block
+        lu_nan_contract(rng, 8, 11, 5, tol)      # four tiles share a block
+        lu_nan_contract(rng, 16, 11, 5, tol)
         lu_nan_contract(rng, 128, 3, 1, tol)     # a block of its own
     lu_tiny_pivot(8)
+    lu_tiny_pivot(16)
     lu_tiny_pivot(128)
     for (H, W), nt in sorted(trsm.items()):
         lu_trsm_shape(rng, nt, H, W, f"LU g=40 order 0 H={H} W={W} nt={nt}",
@@ -1120,7 +1258,12 @@ def phase_lu_path_kernels(plan) -> None:
     rng = np.random.default_rng(16)
     chol, trsm = _tile_shapes(plan)
     for W, nt in sorted(chol.items()):
-        lu_shape(rng, W, nt, 1.0, True, phase="14", plan="g=40 order 1")
+        for tol in (0.0, 0.001, 1.0):
+            lu_shape(rng, W, nt, tol, tol == 1.0, phase="14",
+                     plan="g=40 order 1")
+    s = STATS["lu_tiles"]
+    yardstick("lu_tiles", "sum over the kernels line's shapes", s["ms"],
+              s["library_ms"])
     for (H, W), nt in sorted(trsm.items()):
         lu_trsm_shape(rng, nt, H, W, f"LU g=40 order 1 H={H} W={W} nt={nt}",
                       "14")
@@ -1233,7 +1376,48 @@ def phase_lu_cell(F: SuperscanLU, A: CSCMatrix, t_plan: float) -> dict:
         f"{base / 1024:.2f} GiB held before the phase), launches in the "
         f"first factor {counts}")
     log(f"[13] warm factor profiled, {profile_factor_tail(F, 0.1)}")
+    compare_panel_entries(F)
     return counts
+
+
+def _gather_panel(pools, key, a, c, eps, tol):
+    """The panel phase as a gather, lu_tiles and a padded index_copy_ of
+    whole pool rows: SuperscanLU's path before lu_tiles_pool."""
+    _, pw, W = key
+    accL, accU = pools[("L", pw)], pools[("U", pw)]
+    idx = a["dbase"][:, None] + c.arange(W)
+    Fk, Pk = lu_tiles(accL[:, :W][idx].contiguous(), eps, tol)
+    rows = idx.reshape(-1)
+    pad = torch.nn.functional.pad
+    accL.index_copy_(0, rows, pad(Fk, (0, pw - W)).reshape(-1, pw))
+    accU.index_copy_(0, rows, pad(Pk, (0, pw - W)).reshape(-1, pw))
+
+
+def compare_panel_entries(F: SuperscanLU) -> None:
+    """Two factors of the LU cell with deterministic index_add_ and
+    index_copy_, one through lu_tiles_pool (in place) and one through
+    the gather path: every pool bit for bit, pad block and padded slots
+    included."""
+    pools = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for panel in (superscan_lu._panel, _gather_panel):
+            inner, superscan_lu._panel = superscan_lu._panel, panel
+            try:
+                if not F.factor():
+                    raise AssertionError("LU g=40 factor failed")
+            finally:
+                superscan_lu._panel = inner
+            pools.append({k: v.clone() for k, v in F.pools.items()})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for k, v in pools[0].items():
+        if not torch.equal(v, pools[1][k]):
+            raise AssertionError(
+                f"LU g=40 pool {k}: in place and gathered differ by "
+                f"{(v - pools[1][k]).abs().max().item():.3e}")
+    log(f"[13] LU cell pools through lu_tiles_pool and through the gather "
+        f"path (deterministic index_add_): all {len(pools[0])} bit-equal")
 
 
 def timed_lusol(A: CSCMatrix, b: np.ndarray, **kw) -> tuple:

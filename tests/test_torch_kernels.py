@@ -21,7 +21,8 @@ from tpusparse.device.kernels.trsm_tile import \
 from tpusparse_torch.device.kernels import (bell_spmv, bell_spmv_ref,
                                             chol_tiles, chol_tiles_ref,
                                             dia_spmv, dia_spmv_ref,
-                                            lu_tiles, lu_tiles_ref,
+                                            lu_tiles, lu_tiles_pool,
+                                            lu_tiles_pool_ref, lu_tiles_ref,
                                             sell_pack, sell_slab_ref,
                                             sell_spmv, sell_spmv_ref,
                                             trsm_tiles, trsm_tiles_batched,
@@ -604,6 +605,120 @@ def test_lu_ref_prefers_first_of_equal_candidates():
     Fj, Pj = _lu_panel_jax(D, 1e-9, 1.0)
     assert P[0, 0].argmax().item() == 2
     assert np.array_equal(P.numpy(), Pj)
+
+
+def _tie_tiles(rng, nt, W, tol):
+    """Tiles on which every step of the pivoted LU is exact in f32, or
+    rounds the same with and without a fused multiply-add (each product
+    has a power of two or +-1 for a factor), so that ties survive in both
+    packages: the rows of an upper triangular T (power-of-two diagonal,
+    entries 0, +-1, +-2, +-4 above it) in a random order, so that the
+    earlier swaps move many rows; at columns k = 1, 5, 9, ... the rows for
+    k and k + 1 are T[k] and +-T[k] + T[k + 1], two candidates of equal
+    |value| at column k; at column kb = W - 3, which keeps its row, the
+    diagonal is exactly f32(tol) times the one other candidate's |value|
+    (a power of two), or equal to it at tol >= 1."""
+    M = np.zeros((nt, W, W), np.float32)
+    for t in range(nt):
+        T = np.triu(rng.choice([0.0, 0.0, 1.0, -1.0, 2.0, -2.0, 4.0, -4.0],
+                               size=(W, W)), 1)
+        T += np.diag(2.0 ** rng.integers(0, 4, size=W))
+        rows = T.copy()
+        for k in range(1, W - 1, 4):
+            rows[k + 1] = rng.choice([1.0, -1.0]) * T[k] + T[k + 1]
+        kb = W - 3
+        big = 2.0 ** rng.integers(0, 4)
+        rows[kb, kb] = (np.float32(tol) * np.float32(big) if tol < 1.0
+                        else big)
+        rows[kb, kb + 1:] = 0.0
+        rows[kb + 1] = T[kb + 1]
+        rows[kb + 1, kb] = -big
+        order = np.concatenate([rng.permutation(kb), [kb],
+                                kb + 1 + rng.permutation(W - kb - 1)])
+        M[t] = rows[order]
+    return M
+
+
+# the tie rule of the lazy swaps in csrc/lu_tile.cu, pinned to the
+# reference: equal candidates (one in a row an earlier swap moved, one
+# not), pivots that are moved rows, and |a[k][k]| exactly at tol * max;
+# P identical, F within 1e-5 of max|F| as in test_lu_ref_matches_jax_lu_panel
+@pytest.mark.parametrize("W", [8, 24, 32, 40, 128])
+@pytest.mark.parametrize("tol", [0.001, 1.0])
+def test_lu_ref_matches_jax_lu_panel_on_tie_tiles(rng, W, tol):
+    D = _tie_tiles(rng, 3, W, tol)
+    eps = _eps(D)
+    F, P = lu_tiles_ref(torch.from_numpy(D), eps, tol)
+    Fj, Pj = _lu_panel_jax(D, eps, tol)
+    assert np.array_equal(P.numpy(), Pj)
+    assert _rel(F.numpy(), Fj) <= 1e-5
+    assert (P.numpy() != np.eye(W)).any()
+    kb = W - 3                          # the diagonal at tol * max is kept
+    assert (P.numpy()[:, kb, kb] == 1).all()
+
+
+def _pools(rng, rows, pw):
+    L = rng.normal(size=(rows, pw)).astype(np.float32)
+    L[rows - pw:] = np.eye(pw, dtype=np.float32)     # the pad block
+    return torch.from_numpy(L), torch.from_numpy(
+        rng.normal(size=(rows, pw)).astype(np.float32))
+
+
+def test_lu_tiles_pool_ref_is_lu_tiles_on_the_pool_rows(rng):
+    """F and P of each tile in its pool rows, zero past column W, every
+    other row untouched; padded slots share the identity pad block."""
+    pw, W, rows = 32, 24, 200
+    L, U = _pools(rng, rows, pw)
+    L0, U0 = L.clone(), U.clone()
+    dbase = torch.tensor([0, 60, 24, rows - pw, rows - pw])
+    eps = 1e-7
+    lu_tiles_pool(L, U, dbase, W, eps, 1.0)
+    F, P = lu_tiles_ref(torch.stack([L0[b:b + W, :W] for b in dbase]), eps,
+                        1.0)
+    for t, b in enumerate(dbase.tolist()):
+        assert torch.equal(L[b:b + W, :W], F[t])
+        assert torch.equal(U[b:b + W, :W], P[t])
+        assert not L[b:b + W, W:].any() and not U[b:b + W, W:].any()
+    assert torch.equal(L[rows - pw:rows - pw + W, :W], torch.eye(W))
+    hit = torch.zeros(rows, dtype=torch.bool)
+    for b in dbase.tolist():
+        hit[b:b + W] = True
+    assert torch.equal(L[~hit], L0[~hit]) and torch.equal(U[~hit], U0[~hit])
+
+
+def test_lu_tiles_pool_cpu_takes_plain_version_and_counts_nothing(rng):
+    L, U = _pools(rng, 300, 128)
+    L2, U2 = L.clone(), U.clone()
+    n0 = lu_tiles.launches
+    dbase = torch.tensor([0, 128])
+    lu_tiles_pool(L, U, dbase, 64, 1e-7, 0.001)
+    lu_tiles_pool_ref(L2, U2, dbase, 64, 1e-7, 0.001)
+    assert torch.equal(L, L2) and torch.equal(U, U2)
+    lu_tiles_pool(L, U, torch.zeros(0, dtype=torch.int64), 64, 1e-7, 1.0)
+    assert lu_tiles.launches == n0 == 0
+
+
+@pytest.mark.parametrize("bad", ["dtype", "dbase", "U", "W", "narrow",
+                                 "noncontig", "device"])
+def test_lu_tiles_pool_rejects(bad):
+    L, U, dbase, W = torch.zeros(64, 32), torch.zeros(64, 32), \
+        torch.tensor([0, 32]), 16
+    if bad == "dtype":
+        L = L.double()
+    elif bad == "dbase":
+        dbase = dbase.int()
+    elif bad == "U":
+        U = torch.zeros(64, 16)
+    elif bad == "W":
+        W = 12
+    elif bad == "narrow":
+        W = 40
+    elif bad == "noncontig":
+        L = torch.zeros(32, 64).T
+    else:
+        dbase = dbase.to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        lu_tiles_pool(L, U, dbase, W, 1e-7, 1.0)
 
 
 def test_lu_tiles_cpu_takes_plain_version_and_counts_nothing(rng):

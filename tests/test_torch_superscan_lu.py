@@ -345,19 +345,19 @@ def test_load_pools_factor_matches_own_factor(rng):
 def test_each_trsm_phase_is_two_kernel_solves(rng, monkeypatch):
     """Every trsm phase of a step calls trsm_tiles_batched twice (U_D^T
     for the L rows, the unit L_D for the U rows), and the panel LU
-    lu_tiles once per chol phase, on the CPU as on the card."""
+    lu_tiles_pool once per chol phase, on the CPU as on the card."""
     calls = {"trsm": 0, "lu": 0}
-    trsm, lu = tlu.trsm_tiles_batched, tlu.lu_tiles
+    trsm, lu = tlu.trsm_tiles_batched, tlu.lu_tiles_pool
 
     def spy_trsm(L, X):
         calls["trsm"] += 1
         return trsm(L, X)
 
-    def spy_lu(D, eps, tol):
+    def spy_lu(L, U, dbase, W, eps, tol):
         calls["lu"] += 1
-        return lu(D, eps, tol)
+        return lu(L, U, dbase, W, eps, tol)
     monkeypatch.setattr(tlu, "trsm_tiles_batched", spy_trsm)
-    monkeypatch.setattr(tlu, "lu_tiles", spy_lu)
+    monkeypatch.setattr(tlu, "lu_tiles_pool", spy_lu)
     make, kw = CASES["weak_tol1"]
     F = _lu(make(rng), **kw)
     assert F.factor()
@@ -367,6 +367,63 @@ def test_each_trsm_phase_is_two_kernel_solves(rng, monkeypatch):
                    for k, a in s.xs.items()
                    if k[0] == kind and next(iter(a.values())).shape[1])
     assert calls == {"trsm": 2 * phases("trsm"), "lu": phases("chol")}
+
+
+def _convdiff_3d(g):
+    """Unsymmetric 3D convection-diffusion (bench.py::conv_diff_3d, the
+    LU leg's matrix)."""
+    n = g ** 3
+    ex_lo, ex_hi = -1.4 * np.ones(n - 1), -0.6 * np.ones(n - 1)
+    ex_lo[np.arange(1, n) % g == 0] = 0.0
+    ex_hi[np.arange(1, n) % g == 0] = 0.0
+    ey = -np.ones(n - g)
+    ey[((np.arange(g, n) // g) % g) == 0] = 0.0
+    ez = -np.ones(n - g * g)
+    A = sp.diags([7.0 * np.ones(n), ex_hi, ex_lo, ey, ey, ez, ez],
+                 [0, 1, -1, g, -g, g * g, -g * g], format="csc")
+    A.sort_indices()
+    return CSCMatrix(n, n, A.indptr, A.indices, A.data)
+
+
+def _tile_by_tile(L, U, dbase, W, eps, tol):
+    """The CUDA kernel's in-place semantics, serialised: each tile read
+    from the pool and written back before the next is read, so padded
+    slots that share the pad block factor what the one before wrote."""
+    from tpusparse_torch.device.kernels import lu_tiles_ref
+    pw = L.shape[1]
+    for b in dbase.tolist():
+        Fk, Pk = lu_tiles_ref(L[b:b + W, :W][None].contiguous(), eps, tol)
+        L[b:b + W] = torch.nn.functional.pad(Fk[0], (0, pw - W))
+        U[b:b + W] = torch.nn.functional.pad(Pk[0], (0, pw - W))
+
+
+@pytest.mark.parametrize("order,tol", [(0, 1.0), (1, 0.001)])
+def test_panel_in_place_matches_gather_path(monkeypatch, order, tol):
+    """lu_tiles_pool's plain version (the gather path: every tile read
+    before any is written) and the kernel's in-place semantics tile by
+    tile give the same pools bit for bit on a g=10 LU plan, pad block and
+    padded slots included."""
+    A = _convdiff_3d(10)
+    pools, padded = [], 0
+    for in_place in (False, True):
+        with monkeypatch.context() as m:
+            if in_place:
+                m.setattr(tlu, "lu_tiles_pool", _tile_by_tile)
+            F = _lu(A, order=order, tol=tol)
+            assert F.factor()
+        pools.append({k: v.clone() for k, v in F.pools.items()})
+    for seg in F.plan.segments:                 # padded slots that run
+        for key, a in seg.xs.items():
+            lad = seg.ladders.get(key)
+            for step in range(seg.hi - seg.lo if key[0] == "chol" else 0):
+                bs = (a["dbase"].shape[1] if lad is None
+                      else lad[int(seg.lvls[key][step])])
+                padded += int((a["dbase"][step, :bs]
+                               == F.plan.pool_rows[key[1]]).sum())
+    assert padded > 0
+    assert pools[1].keys() == pools[0].keys()
+    for k, v in pools[0].items():
+        assert torch.equal(v, pools[1][k]), k
 
 
 def test_not_square_and_default_device():

@@ -15,18 +15,31 @@ column k the pivot row is the first row r >= k with the largest |D[r, k]|,
 unless |D[k, k]| >= tol * that largest value (``tol`` = 0 keeps every
 diagonal, a non-finite column's too: P = I).  A pivot with |d| < eps becomes -eps where d < 0, else
 +eps; a NaN stays NaN, and a tile with a NaN comes out non-finite.
+
+``lu_tiles_pool`` is the same function on tiles that lie in a pool of
+rows (SuperscanLU's panel phase): it factors them in place and writes P
+into the U pool, one launch and no gather or scatter around it; it counts
+under ``lu_tiles.launches``, and ``lu_tiles_pool_ref`` is its plain
+version.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.nn.functional import pad
 
 from . import _build
 from ._args import expect, one_device
 
-__all__ = ["lu_tiles", "lu_tiles_ref"]
+__all__ = ["lu_tiles", "lu_tiles_ref", "lu_tiles_pool", "lu_tiles_pool_ref"]
 
 _MAX_W = 128
+
+
+def _check_w(fn: str, W: int) -> None:
+    if W % 8 or not 8 <= W <= _MAX_W:
+        raise ValueError(f"{fn}: W must be a multiple of 8 in "
+                         f"[8, {_MAX_W}], got {W}")
 
 
 def _check(D: torch.Tensor) -> torch.device:
@@ -34,10 +47,7 @@ def _check(D: torch.Tensor) -> torch.device:
     if D.shape[1] != D.shape[2]:
         raise ValueError(f"lu_tiles: (nt, W, W) expected, got "
                          f"{tuple(D.shape)}")
-    W = D.shape[1]
-    if W % 8 or not 8 <= W <= _MAX_W:
-        raise ValueError(f"lu_tiles: W must be a multiple of 8 in "
-                         f"[8, {_MAX_W}], got {W}")
+    _check_w("lu_tiles", D.shape[1])
     if D.data_ptr() % 16:           # the kernel reads 16 bytes at a time
         raise ValueError("lu_tiles: D must be 16-byte aligned")
     return one_device("lu_tiles", D)
@@ -93,3 +103,56 @@ def lu_tiles(D: torch.Tensor, eps: float, tol: float) -> tuple:
 
 
 lu_tiles.launches = 0
+
+
+def _check_pool(L: torch.Tensor, U: torch.Tensor, dbase: torch.Tensor,
+                W: int) -> torch.device:
+    fn = "lu_tiles_pool"
+    expect(fn, "L", L, torch.float32, 2)
+    expect(fn, "U", U, torch.float32, 2)
+    expect(fn, "dbase", dbase, torch.int64, 1)
+    if U.shape != L.shape:
+        raise ValueError(f"{fn}: L {tuple(L.shape)} and U {tuple(U.shape)}")
+    _check_w(fn, W)
+    if L.shape[1] < W or L.shape[1] % 4:
+        raise ValueError(f"{fn}: a pool row of {L.shape[1]} floats for "
+                         f"W={W} (at least W, a multiple of 4)")
+    if L.data_ptr() % 16 or U.data_ptr() % 16:
+        raise ValueError(f"{fn}: the pools must be 16-byte aligned")
+    return one_device(fn, L, U, dbase)
+
+
+def lu_tiles_pool_ref(L: torch.Tensor, U: torch.Tensor, dbase: torch.Tensor,
+                      W: int, eps: float, tol: float) -> None:
+    """Plain version of ``lu_tiles_pool``: the tiles gathered, factored by
+    ``lu_tiles_ref``, and F and P written back as whole pool rows, zero
+    past column W."""
+    pw = L.shape[1]
+    idx = dbase[:, None] + torch.arange(W, device=L.device)
+    Fk, Pk = lu_tiles_ref(L[:, :W][idx], eps, tol)
+    rows = idx.reshape(-1)
+    L.index_copy_(0, rows, pad(Fk, (0, pw - W)).reshape(-1, pw))
+    U.index_copy_(0, rows, pad(Pk, (0, pw - W)).reshape(-1, pw))
+
+
+def lu_tiles_pool(L: torch.Tensor, U: torch.Tensor, dbase: torch.Tensor,
+                  W: int, eps: float, tol: float) -> None:
+    """In place, for each t: the (W, W) tile at rows dbase[t] .. dbase[t]
+    + W - 1, columns 0 .. W - 1 of the (rows, pw) f32 pool L becomes its
+    F, and the same rows of U its P, both rows zero past column W.  Tiles
+    may share rows only where their LU is the tile itself (the plan's
+    identity pad block)."""
+    dev = _check_pool(L, U, dbase, W)
+    if dev.type == "cpu":
+        lu_tiles_pool_ref(L, U, dbase, W, eps, tol)
+        return
+    nt = dbase.shape[0]
+    if nt == 0:
+        return
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _build.check(lib.tpt_lu_tiles_pool(L.data_ptr(), U.data_ptr(),
+                                       dbase.data_ptr(), nt, W, L.shape[1],
+                                       eps, tol, stream),
+                 "tpt_lu_tiles_pool")
+    lu_tiles.launches += 1

@@ -14,10 +14,10 @@ per step, in sorted key order:
                     (masked gathers, two ``bmm``, ``index_add_`` into
                     clamped targets; tgtu < 0 marks the diagonal block,
                     whose rows add exact zeros to row 0);
-  panel LU:         ``kernels.lu_tiles`` on the W x W diagonal blocks
-                    (threshold pivoting inside the block, tiny pivots
-                    perturbed to +-eps), F into the L pool, the one-hot P
-                    into the U pool's diagonal slot;
+  panel LU:         ``kernels.lu_tiles_pool`` on the W x W diagonal
+                    blocks, in place (threshold pivoting inside the
+                    block, tiny pivots perturbed to +-eps), F into the L
+                    pool, the one-hot P into the U pool's diagonal slot;
   trsm:             L od rows <- X U_D^-1 and U od rows <- (X P^T) L_D^-T,
                     two launches of ``kernels.trsm_tiles_batched`` (which
                     solves Y = X L^-T and reads L's lower triangle only):
@@ -53,7 +53,7 @@ from ..core.perm import ipvec, pvec, pinv as _pinv
 from ..symbolic.transversal import bottleneck_transversal, diag_dominance
 from ..utils.profiling import Metrics
 from .config import DTYPE
-from .kernels import lu_tiles, trsm_tiles_batched
+from .kernels import lu_tiles_pool, trsm_tiles_batched
 from .refine import refine
 from .refine_many import refine_many
 from .superscan import _Consts, _Packed, _factor, pools_from_numpy
@@ -95,15 +95,12 @@ def _upd(pools: LUPools, key: tuple, a: Dict[str, torch.Tensor],
 
 def _panel(pools: LUPools, key: tuple, a: Dict[str, torch.Tensor],
            c: _Consts, eps: float, tol: float) -> None:
-    """Pivoted LU of the diagonal blocks (JAX: superscan_lu.py:208-233):
-    F into the L pool, the one-hot P into the U pool, as full pool rows."""
+    """Pivoted LU of the diagonal blocks (JAX: superscan_lu.py:208-233),
+    in place in the pools: F into the L pool, the one-hot P into the U
+    pool, as full pool rows (one launch of ``lu_tiles_pool``)."""
     _, pw, W = key
-    accL, accU = pools[("L", pw)], pools[("U", pw)]
-    idx = a["dbase"][:, None] + c.arange(W)                # (bs, W)
-    Fk, Pk = lu_tiles(accL[:, :W][idx].contiguous(), eps, tol)
-    rows = idx.reshape(-1)
-    accL.index_copy_(0, rows, F.pad(Fk, (0, pw - W)).reshape(-1, pw))
-    accU.index_copy_(0, rows, F.pad(Pk, (0, pw - W)).reshape(-1, pw))
+    lu_tiles_pool(pools[("L", pw)], pools[("U", pw)], a["dbase"], W, eps,
+                  tol)
 
 
 def _trsm(pools: LUPools, key: tuple, a: Dict[str, torch.Tensor],
