@@ -78,22 +78,27 @@ times, peak device memory, and a torch.profiler window over one warm
 factor (one update + downdate in 11): device ops, kernel time, busy
 share and the longest kernels.
  12. the pivoted LU tile kernel (lu_tiles) against its plain version on
-     the card at every W of the g=40 LU plan (phase 13's), at its largest
-     per-step batch, for tol 0 (diagonally dominant tiles), 0.001 (rows
-     swapped so that pivoting must undo them) and 1.0 (random normal
-     tiles): F bit for bit, P identical; times of kernel, plain version,
-     torch.linalg.lu_factor_ex and an empty launch of the same grid
-     (the launch floor), and the chain floor (W LU columns of a one-warp
-     probe); yardstick: lu_tiles no slower than lu_factor_ex at any
-     shape; tie tiles at W = 8, 24, 32, 40 and 128 (equal candidates in
-     moved and unmoved rows, the diagonal exactly at tol * max), bit for
-     bit; the in-place pool entry (lu_tiles_pool, padded slots on the
-     pad block) against its plain version, both pools bit for bit; the
-     NaN contract (a NaN tile between good ones at W = 8, 16 and 128,
-     P = I at tol 0) and the tiny-pivot contract (a pivot below eps
-     becomes +-eps, W = 8, 16, 128); then trsm_tiles_batched at every
-     (H, W) of that plan's trsm phases in both of the LU's operand forms
-     (as in 14, off the kernels line);
+     the card at every panel-LU key (pw, W) of the g=40 LU plan (phase
+     13's), at its largest step, with that step's real and padded slots
+     (every step's padded slots must stand together at its end), for
+     tol 0 (diagonally dominant tiles), 0.001 (rows swapped so that
+     pivoting must undo them) and 1.0 (random normal tiles): through the
+     entry the factor calls, lu_tiles_pool, in place in the step's pools
+     (both pools bit for bit against its plain version), and through
+     lu_tiles on the same tiles gathered (F bit for bit, P identical);
+     times of lu_tiles_pool, its plain version, torch.linalg.
+     lu_factor_ex on the gathered tiles and an empty launch of the same
+     grid (the launch floor), and the chain floor (W LU columns of a
+     one-warp probe); yardstick: lu_tiles_pool no slower than
+     lu_factor_ex at any shape; tie tiles at W = 8, 24, 32, 40 and 128
+     (equal candidates in moved and unmoved rows, the diagonal exactly
+     at tol * max), bit for bit; lu_tiles_pool at W = 24 and 40 (widths
+     no plan has) with padded slots, both pools bit for bit; the NaN
+     contract (a NaN tile between good ones at W = 8, 16 and 128, P = I
+     at tol 0) and the tiny-pivot contract (a pivot below eps becomes
+     +-eps, W = 8, 16, 128); then trsm_tiles_batched at every (H, W) of
+     that plan's trsm phases in both of the LU's operand forms (as in 14,
+     off the kernels line);
  13. the BENCH_r05 LU cell: SuperscanLU(conv_diff_3d(40), order 0,
      max_segments 12), plan fields equal to BENCH_r05's, the launch
      counters reset just before the first factor: lu_tiles (through
@@ -102,14 +107,14 @@ share and the longest kernels.
      factor first and warm, growth, refined residual <= 1e-14, peak
      device memory and a torch.profiler window over the last segments of
      a warm factor that hold a tenth of its steps (H1's and B2's kernel
-     time named); then two factors with deterministic index_add_, one
-     through lu_tiles_pool and one through the gather path around
-     lu_tiles: every pool bit for bit;
+     time named); in a partial run only (--phases 13), two more factors
+     with deterministic index_add_, one through lu_tiles_pool and one
+     through the gather path around lu_tiles: every pool bit for bit;
  14. the lusol entry point: lusol(1, A, b) on the same matrix (TpuLU ->
      SuperscanLU order 1; both LU kernels must launch), then lu_tiles at
-     tol 0, 0.001 and 1 at every W of that order-1 plan (as in 12, tol 1
-     to the kernels line; yardstick per shape and over the kernels
-     line's lu_tiles shapes) and trsm_tiles_batched at
+     tol 0, 0.001 and 1 at every panel-LU key of that order-1 plan (as
+     in 12, tol 1 to the kernels line; yardstick per shape and over the
+     kernels line's lu_tiles shapes) and trsm_tiles_batched at
      every (H, W) of its trsm phases, in both of the LU's operand forms
      (U_D^T and the unit lower L_D; off the kernels line); on a mixed BTF
      matrix whose dense blocks factor on the card beside a sparse one,
@@ -500,18 +505,19 @@ def _spd(rng, nt: int, B: int) -> torch.Tensor:
     return X @ X.mT + B * torch.eye(B, device=DEV)
 
 
-def chain_step_ms(kind: int, steps: int = 1 << 16) -> float:
-    """Milliseconds of one dependent step on one warp (tpt_chain_probe):
-    kind 0 a Cholesky column (reciprocal, multiply, fused multiply-add),
-    kind 1 the substitution column of the trsm kernel (fused
-    multiply-add, multiply by the diagonal's reciprocal)."""
-    lib = _build.library()
+def chain_step_ms(kind: int, steps: int = 1 << 16,
+                  entry: str = "tpt_chain_probe") -> float:
+    """Milliseconds of one dependent step on one warp (``entry``, by
+    default tpt_chain_probe: kind 0 a Cholesky column (reciprocal,
+    multiply, fused multiply-add), kind 1 the substitution column of the
+    trsm kernel (fused multiply-add, multiply by the diagonal's
+    reciprocal))."""
+    probe_fn = getattr(_build.library(), entry)
     out = torch.empty(32, device=DEV)
 
     def probe():
-        _build.check(lib.tpt_chain_probe(
-            out.data_ptr(), steps, kind,
-            torch.cuda.current_stream().cuda_stream), "tpt_chain_probe")
+        _build.check(probe_fn(out.data_ptr(), steps, kind,
+                              torch.cuda.current_stream().cuda_stream), entry)
     return cuda_ms(probe, reps=3, runs=3) / steps
 
 
@@ -1062,10 +1068,12 @@ LU_STEP = {}    # {probe kind: ms of one LU column on one warp}
 
 def lu_chain_step() -> float:
     """Milliseconds of one dependent LU column as lu_tiles chains it
-    (tpt_chain_probe kind 2, redux.sync search), measured once a run; kind
-    3, the same column with a butterfly of shuffles, is printed beside it."""
+    (tpt_lu_chain_probe kind 2, redux.sync search), measured once a run;
+    kind 3, the same column with a butterfly of shuffles, is printed
+    beside it."""
     if not LU_STEP:
-        LU_STEP.update({k: chain_step_ms(k) for k in (2, 3)})
+        LU_STEP.update({k: chain_step_ms(k, entry="tpt_lu_chain_probe")
+                        for k in (2, 3)})
         log(f"[12] one dependent LU column on one warp: {LU_STEP[2] * 1e6:.1f}"
             f" ns with redux.sync (lu_tiles' search), {LU_STEP[3] * 1e6:.1f}"
             f" ns with a butterfly of shuffles (chain floor of lu_tiles = W "
@@ -1084,38 +1092,118 @@ def lu_launch_floor_ms(nt: int, W: int) -> float:
     return cuda_ms(empty)
 
 
-def lu_shape(rng, W: int, nt: int, tol: float, tally: bool,
-             phase: str = "12", plan: str = "g=40 order 0") -> None:
-    """One (nt, W, W) of lu_tiles at one tol against its plain version
-    (F bit for bit, P identical), timed beside the plain version,
-    lu_factor_ex and an empty launch of the same grid, and held to
-    lu_factor_ex's time.  The bound counts D read once and F and P
-    written once, and (2/3) W^3 flops a tile; the chain floor is W LU
-    columns on one warp."""
-    label = f"{plan} W={W} nt={nt} tol={tol}"
-    D = _lu_tiles_input(rng, nt, W, tol)
+def _panel_steps(plan) -> dict:
+    """{(pw, W): (real slots, padded slots)} of each panel-LU key's
+    largest step over the plan's segments (of equal ones, one with a real
+    tile and, of those, the most padded slots: the most slots that share
+    the pad block), read from the step's own dbase.  Raises
+    unless every step's real slots are distinct and its padded slots,
+    all on the pad block (plan.pool_rows[pw]), stand together after
+    them: lu_tiles_pool's condition for slots that share a tile."""
+    def rank(nreal, npad):
+        return nreal + npad, nreal > 0, npad
+
+    out = {}
+    for seg in plan.segments:
+        for key, arrs in seg.xs.items():
+            if key[0] != "chol":
+                continue
+            _, pw, W = key
+            lad, pad = seg.ladders.get(key), plan.pool_rows[pw]
+            for step in range(seg.hi - seg.lo):
+                bs = (arrs["dbase"].shape[1] if lad is None
+                      else lad[int(seg.lvls[key][step])])
+                d = np.asarray(arrs["dbase"][step, :bs])
+                nreal = int((d != pad).sum())
+                if not ((d[nreal:] == pad).all()
+                        and np.unique(d[:nreal]).size == nreal):
+                    raise AssertionError(f"panel step {key} {step}: padded "
+                                         f"slots not together at the end")
+                if rank(nreal, bs - nreal) > rank(*out.get((pw, W), (0, 0))):
+                    out[(pw, W)] = (nreal, bs - nreal)
+    return out
+
+
+def _step_pools(rng, W: int, pw: int, nreal: int, npad: int,
+                tol: float) -> tuple:
+    """The L and U pools of a panel-LU step with nreal tiles and npad
+    padded slots, as the planner lays them out but compacted: the real
+    tiles (_lu_tiles_input) in slot order, each followed by 8 rows that
+    no tile owns, then the pw-row identity pad block that the padded
+    slots share, then W more rows; junk everywhere else, columns W.. of
+    the tile rows and all of U included (the entry must zero or overwrite
+    what it owns and touch nothing more).  Returns (L, U, dbase, D): D
+    the (nreal + npad, W, W) tiles the slots read, gathered."""
+    stride = W + 8
+    rows = nreal * stride + pw + W
+    L = torch.from_numpy(rng.normal(size=(rows, pw)).astype(np.float32))
+    U = torch.from_numpy(rng.normal(size=(rows, pw)).astype(np.float32))
+    L, U = L.to(DEV), U.to(DEV)
+    dbase = torch.cat([torch.arange(nreal) * stride,
+                       torch.full((npad,), nreal * stride)]).to(DEV)
+    idx = dbase[:, None] + torch.arange(W, device=DEV)
+    L[:, :W][idx[:nreal]] = _lu_tiles_input(rng, nreal, W, tol)
+    L[nreal * stride:nreal * stride + pw] = torch.eye(pw, device=DEV)
+    return L, U, dbase, L[:, :W][idx]
+
+
+def lu_pool_bit_equal(L, U, dbase, W: int, eps: float, tol: float,
+                      label: str) -> tuple:
+    """lu_tiles_pool against lu_tiles_pool_ref on copies of the pools L
+    and U: raises unless both pools come out bit for bit the same;
+    returns the kernel's (L, U)."""
+    L1, U1, L2, U2 = L.clone(), U.clone(), L.clone(), U.clone()
+    lu_tiles_pool(L1, U1, dbase, W, eps, tol)
+    lu_tiles_pool_ref(L2, U2, dbase, W, eps, tol)
+    sync()
+    if not (torch.equal(L1, L2) and torch.equal(U1, U2)):
+        raise AssertionError(f"lu_tiles_pool {label}: pools differ from the "
+                             f"plain version")
+    return L1, U1
+
+
+def lu_shape(rng, pw: int, W: int, nreal: int, npad: int, tol: float,
+             tally: bool, phase: str = "12",
+             plan: str = "g=40 order 0") -> None:
+    """One panel-LU step at one tol, through the entry the factor calls
+    (lu_tiles_pool, in place on the step's pools) against its plain
+    version, both pools bit for bit, and through lu_tiles on the same
+    tiles gathered (F bit for bit, P identical); lu_tiles_pool timed,
+    in place on its own output (the kernel's time does not depend on
+    the values), beside its plain version, lu_factor_ex on the gathered
+    tiles and an empty launch of the same grid, and held to
+    lu_factor_ex's time.  The bound counts the distinct tiles (the real
+    ones and one pad block): W^2 floats read, W pw floats of F and of P
+    written, (2/3) W^3 flops each; the chain floor is W LU columns on
+    one warp."""
+    nt = nreal + npad
+    label = f"{plan} pw={pw} W={W} nt={nt} ({npad} padded) tol={tol}"
+    L, U, dbase, D = _step_pools(rng, W, pw, nreal, npad, tol)
     eps = _eps(D)
     P, err = lu_bit_equal(D, eps, tol, label)
     eye = torch.eye(W, device=DEV)
     if tol == 0.0 and not torch.equal(P, eye.expand_as(P)):
         raise AssertionError(f"lu_tiles {label}: P is not I")
-    if tol > 0.0 and torch.equal(P, eye.expand_as(P)):
+    if tol > 0.0 and nreal and torch.equal(P, eye.expand_as(P)):
         raise AssertionError(f"lu_tiles {label}: no pivoting took place")
-    ms = cuda_ms(lambda: lu_tiles(D, eps, tol))
-    pms = cuda_ms(lambda: lu_tiles_ref(D, eps, tol), reps=3, runs=3)
+    L1, U1 = lu_pool_bit_equal(L, U, dbase, W, eps, tol, label)
+    ms = cuda_ms(lambda: lu_tiles_pool(L1, U1, dbase, W, eps, tol))
+    pms = cuda_ms(lambda: lu_tiles_pool_ref(L, U, dbase, W, eps, tol),
+                  reps=3, runs=3)
     lms = cuda_ms(lambda: torch.linalg.lu_factor_ex(D))
     floor = lu_launch_floor_ms(nt, W)
     chain = W * lu_chain_step()
-    nbytes, flops = 12 * nt * W * W, 2 * nt * W ** 3 / 3
+    tiles = nreal + (npad > 0)
+    nbytes, flops = 4 * tiles * (W * W + 2 * W * pw), 2 * tiles * W ** 3 / 3
     if tally:
         b = record("lu_tiles", err, ms, pms, lms, nbytes, flops)
         STATS["lu_tiles"]["chain_ms"] += chain
     else:
         b, _ = bound_ms(nbytes, flops)
-    log(f"[{phase}] lu_tiles {label}: bit-equal (max_abs_err {err:.1e}), "
-        f"kernel {ms:.4f} ms, plain "
-        f"{pms:.4f} ms, lu_factor_ex {lms:.4f} ms, bound {b:.5f} ms, chain "
-        f"floor {chain:.4f} ms, launch floor {floor:.4f} ms"
+    log(f"[{phase}] lu_tiles {label}: bit-equal in the pools and gathered "
+        f"(max_abs_err {err:.1e}), kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+        f"lu_factor_ex {lms:.4f} ms, bound {b:.5f} ms, chain floor "
+        f"{chain:.4f} ms, launch floor {floor:.4f} ms"
         f"{'' if tally else ' (off the main path: not in the kernels line)'}")
     yardstick("lu_tiles", label, ms, lms)
 
@@ -1130,26 +1218,13 @@ def lu_ties(rng, W: int, tol: float) -> None:
 
 
 def lu_pool_entry(rng, W: int, pw: int, tol: float) -> None:
-    """lu_tiles_pool (in place in a pool of rows of width pw, padded slots
-    on the identity pad block) against its plain version: both pools bit
-    for bit."""
-    rows = 6 * W + pw
-    L = torch.from_numpy(rng.normal(size=(rows, pw)).astype(np.float32))
-    L[rows - pw:] = torch.eye(pw)
-    L, U = L.to(DEV), torch.zeros(rows, pw, device=DEV)
-    dbase = torch.tensor([0, 2 * W, rows - pw, W, rows - pw, 4 * W,
-                          rows - pw], device=DEV)
-    L2, U2 = L.clone(), U.clone()
-    eps = _eps(L[:rows - pw])
-    lu_tiles_pool(L, U, dbase, W, eps, tol)
-    lu_tiles_pool_ref(L2, U2, dbase, W, eps, tol)
-    sync()
-    if not (torch.equal(L, L2) and torch.equal(U, U2)):
-        raise AssertionError(f"lu_tiles_pool W={W} pw={pw} tol={tol}: pools "
-                             f"differ from the plain version")
-    log(f"[12] lu_tiles_pool W={W} pw={pw} tol={tol}: {dbase.numel()} slots "
-        f"(3 on the pad block) in place, both pools bit-equal to the plain "
-        f"version")
+    """lu_tiles_pool at a width no plan has, in pools of width pw with 4
+    tiles and 3 padded slots on the pad block, against its plain version:
+    both pools bit for bit."""
+    L, U, dbase, D = _step_pools(rng, W, pw, 4, 3, tol)
+    lu_pool_bit_equal(L, U, dbase, W, _eps(D), tol, f"W={W} pw={pw}")
+    log(f"[12] lu_tiles_pool W={W} pw={pw} tol={tol}: 4 tiles and 3 padded "
+        f"slots in place, both pools bit-equal to the plain version")
 
 
 def lu_nan_contract(rng, W: int, nt: int, bad: int, tol: float) -> None:
@@ -1206,14 +1281,14 @@ def phase_lu_kernels(plan) -> None:
     kernels line; trsm_tiles_batched at every (H, W) of its trsm phases
     in both LU forms, off the kernels line."""
     rng = np.random.default_rng(12)
-    chol, trsm = _tile_shapes(plan)
-    for W, nt in sorted(chol.items()):
+    _, trsm = _tile_shapes(plan)
+    for (pw, W), (nreal, npad) in sorted(_panel_steps(plan).items()):
         for tol in (0.0, 0.001, 1.0):
-            lu_shape(rng, W, nt, tol, tally=tol == 1.0)
+            lu_shape(rng, pw, W, nreal, npad, tol, tally=tol == 1.0)
     for W in (8, 24, 32, 40, 128):      # 24 and 40: widths no plan has
         for tol in (0.001, 1.0):
             lu_ties(rng, W, tol)
-    for W, pw in ((24, 32), (128, 128)):
+    for W, pw in ((24, 32), (40, 128)):     # a warp, a block a tile
         lu_pool_entry(rng, W, pw, 1.0)
     for tol in (1.0, 0.0):
         lu_nan_contract(rng, 8, 11, 5, tol)      # four tiles share a block
@@ -1256,10 +1331,10 @@ def phase_lu_path_kernels(plan) -> None:
     kernels line; trsm_tiles_batched at every (H, W) of its trsm phases in
     both LU forms, off the kernels line."""
     rng = np.random.default_rng(16)
-    chol, trsm = _tile_shapes(plan)
-    for W, nt in sorted(chol.items()):
+    _, trsm = _tile_shapes(plan)
+    for (pw, W), (nreal, npad) in sorted(_panel_steps(plan).items()):
         for tol in (0.0, 0.001, 1.0):
-            lu_shape(rng, W, nt, tol, tol == 1.0, phase="14",
+            lu_shape(rng, pw, W, nreal, npad, tol, tol == 1.0, phase="14",
                      plan="g=40 order 1")
     s = STATS["lu_tiles"]
     yardstick("lu_tiles", "sum over the kernels line's shapes", s["ms"],
@@ -1330,8 +1405,11 @@ def profile_factor_tail(F: SuperscanLU, share: float) -> str:
                 "H1": "lu_tile_kernel", "B2": "trsm_tile_kernel"}))
 
 
-def phase_lu_cell(F: SuperscanLU, A: CSCMatrix, t_plan: float) -> dict:
-    """Returns the launches of the first factor (a main path)."""
+def phase_lu_cell(F: SuperscanLU, A: CSCMatrix, t_plan: float,
+                  compare: bool) -> dict:
+    """Returns the launches of the first factor (a main path).  With
+    ``compare``, two more factors hold the panel entries' pools against
+    each other (compare_panel_entries)."""
     plan = F.plan
     check_plan(plan, A, LU_CELL, segments=len(plan.segments))
     steps = _phase_steps(plan)
@@ -1376,7 +1454,8 @@ def phase_lu_cell(F: SuperscanLU, A: CSCMatrix, t_plan: float) -> dict:
         f"{base / 1024:.2f} GiB held before the phase), launches in the "
         f"first factor {counts}")
     log(f"[13] warm factor profiled, {profile_factor_tail(F, 0.1)}")
-    compare_panel_entries(F)
+    if compare:
+        compare_panel_entries(F)
     return counts
 
 
@@ -1384,13 +1463,8 @@ def _gather_panel(pools, key, a, c, eps, tol):
     """The panel phase as a gather, lu_tiles and a padded index_copy_ of
     whole pool rows: SuperscanLU's path before lu_tiles_pool."""
     _, pw, W = key
-    accL, accU = pools[("L", pw)], pools[("U", pw)]
-    idx = a["dbase"][:, None] + c.arange(W)
-    Fk, Pk = lu_tiles(accL[:, :W][idx].contiguous(), eps, tol)
-    rows = idx.reshape(-1)
-    pad = torch.nn.functional.pad
-    accL.index_copy_(0, rows, pad(Fk, (0, pw - W)).reshape(-1, pw))
-    accU.index_copy_(0, rows, pad(Pk, (0, pw - W)).reshape(-1, pw))
+    lu_tiles_pool_ref(pools[("L", pw)], pools[("U", pw)], a["dbase"], W,
+                      eps, tol, lu=lu_tiles)
 
 
 def compare_panel_entries(F: SuperscanLU) -> None:
@@ -1880,7 +1954,8 @@ def main() -> None:
         if "12" in want:
             timed("12", phase_lu_kernels, F.plan)
         if "13" in want:
-            lu_counts = timed("13", phase_lu_cell, F, A, t_plan)
+            lu_counts = timed("13", phase_lu_cell, F, A, t_plan,
+                              want != set(PHASES))
             for name in ("lu_tiles", "trsm_tiles_batched"):
                 counts[name] += lu_counts[name]
         del F

@@ -386,15 +386,40 @@ def _convdiff_3d(g):
 
 
 def _tile_by_tile(L, U, dbase, W, eps, tol):
-    """The CUDA kernel's in-place semantics, serialised: each tile read
-    from the pool and written back before the next is read, so padded
-    slots that share the pad block factor what the one before wrote."""
+    """The CUDA kernel's in-place semantics, serialised: the first slot
+    of each run of equal dbase values reads its tile from the pool and
+    writes F and P back before the next tile is read; the other slots of
+    a run (padded slots on the pad block) store nothing."""
     from tpusparse_torch.device.kernels import lu_tiles_ref
     pw = L.shape[1]
-    for b in dbase.tolist():
+    bases = dbase.tolist()
+    for t, b in enumerate(bases):
+        if t and b == bases[t - 1]:
+            continue
         Fk, Pk = lu_tiles_ref(L[b:b + W, :W][None].contiguous(), eps, tol)
         L[b:b + W] = torch.nn.functional.pad(Fk[0], (0, pw - W))
         U[b:b + W] = torch.nn.functional.pad(Pk[0], (0, pw - W))
+
+
+@pytest.mark.parametrize("shared", ["identity", "random"])
+def test_tile_by_tile_factors_a_shared_tile_once(rng, shared):
+    """Slots that share a tile stand next to each other, and the kernel
+    stores the first of them only: the shared tile becomes its LU once,
+    as lu_tiles_pool's plain version leaves it, whether or not the tile
+    is its own LU."""
+    from tpusparse_torch.device.kernels import lu_tiles_pool_ref
+    pw, W, pad = 32, 16, 96
+    L = torch.from_numpy(rng.normal(size=(pad + pw, pw)).astype(np.float32))
+    if shared == "identity":
+        L[pad:] = torch.eye(pw)
+    U = torch.from_numpy(rng.normal(size=L.shape).astype(np.float32))
+    dbase = torch.tensor([0, 40, pad, pad, pad])
+    L1, U1, L2, U2 = L.clone(), U.clone(), L.clone(), U.clone()
+    _tile_by_tile(L1, U1, dbase, W, 1e-7, 1.0)
+    lu_tiles_pool_ref(L2, U2, dbase, W, 1e-7, 1.0)
+    assert torch.equal(L1, L2) and torch.equal(U1, U2)
+    assert torch.equal(L1[pad:pad + W, :W], torch.eye(W)) == (
+        shared == "identity")
 
 
 @pytest.mark.parametrize("order,tol", [(0, 1.0), (1, 0.001)])

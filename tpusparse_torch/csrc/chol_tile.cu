@@ -255,7 +255,7 @@ cudaError_t launch(const float* in, float* out, int nt, cudaStream_t stream) {
 // One warp, `steps` dependent steps of the chain that bounds a tile
 // kernel: kind 0, a Cholesky column as the kernel above chains them
 // (pivot -> reciprocal -> scaled entry -> the next pivot by a fused
-// multiply-add); kind 1, a substitution column as trsm_tile.cu
+// multiply-add); any other kind, a substitution column as trsm_tile.cu
 // chains them (fused multiply-add, multiply with a reciprocal computed
 // beforehand).
 __global__ void chain_probe_kernel(float* out, int steps, int kind) {
@@ -312,19 +312,10 @@ extern "C" int tpt_chol_tiles(const float* in, float* out, int nt, int B,
   return static_cast<int>(e);
 }
 
-// lu_tile.cu's probe of an LU column (kinds 2 and 3).
-extern "C" int tpt_lu_chain_probe(float* out, int steps, int kind,
-                                  void* stream);
-
 // out: 32 floats on the current device.  Runs the one-warp latency probe
-// described at chain_probe_kernel (kinds 0 and 1) or at lu_tile.cu's
-// lu_chain_probe_kernel (2: an LU column as lu_tiles chains it, 3: the
-// same with a butterfly search); the caller times it with events.
+// described at chain_probe_kernel; the caller times it with events.
 extern "C" int tpt_chain_probe(float* out, int steps, int kind,
                                void* stream) {
-  if (kind >= 2) {
-    return tpt_lu_chain_probe(out, steps, kind, stream);
-  }
   chain_probe_kernel<<<1, kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
       out, steps, kind);
   return static_cast<int>(cudaGetLastError());

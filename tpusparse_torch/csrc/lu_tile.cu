@@ -69,16 +69,28 @@
 //   rows and multipliers go through shared memory, never the tile.
 // A NaN or a zero column cannot leave its tile: tiles share no memory.
 //
+// Tiles a warp: W <= 16 still takes one warp a tile, not 2 or 4 tiles on
+// lane subsets.  The time of a launch is one tile's column chain, which
+// packing leaves as it is (each lane still owns its row, and a reduction
+// over 8 lanes costs what one over 32 does); what packing saves is warps,
+// and the widest batch the LU plans give at these widths (1,080 slots at
+// W = 8) is 270 blocks of 4 warps, resident on the 132 SMs at once.  At
+// W = 8 a launch takes 4.2 us against a 2.1 us empty launch of the same
+// grid and a 1.2 us chain (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py
+// phase 14), so packing had at most some 1 us a launch to win.
+//
 // tpt_lu_tiles reads (nt, W, W) tiles and writes F and P beside them;
 // tpt_lu_tiles_pool factors the tiles in place in a pool of rows of width
 // ld (tile t is rows dbase[t] .. dbase[t] + W - 1, columns 0 .. W - 1 of
 // the L pool), writes F there and P into the same rows of the U pool, and
 // zeroes both pools' columns W .. ld - 1 of those rows, as the padded
-// index_copy_ of superscan_lu.py's gather path does.  Tiles may share a
-// block: the padded slots of a step all point at the pool's identity
-// block, whose LU is the identity (or eps I where eps > 1, which is its
-// own LU), so the concurrent reads and writes leave it as the gather path
-// does.
+// index_copy_ of superscan_lu.py's gather path does.  Slots that share a
+// tile (the padded slots of a step, which all point at the pool's pad
+// block) stand next to each other in dbase, and only the first slot of
+// such a run stores: the others read the shared rows and drop what they
+// compute.  So the one writer reads the block before anything is written
+// to it, and the block becomes its own LU once, as in the gather path,
+// whatever it holds.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -324,9 +336,10 @@ __device__ __forceinline__ void apply_chunk(float (&a)[RJ][CW], int lane,
 
 // One tile per warp (W <= 32) or per block (W >= 40); tile t starts at
 // in + dbase[t] * ld, or at in + t * W * ld without dbase, rows ld floats
-// apart.  F and P go to the same offsets of fout and pout.  in may be
-// fout: every load of a tile comes before the first barrier (W >= 40) or
-// the first store (W <= 32).
+// apart.  F and P go to the same offsets of fout and pout, from the first
+// slot of each run of equal dbase values only.  in may be fout: a storing
+// slot loads its whole tile before its first barrier (W >= 40) or store
+// (W <= 32), and no other slot stores to its rows.
 template <int W>
 __global__ void __launch_bounds__(Geo<W>::kThreads, 1)
 lu_tile_kernel(const float* in, float* fout, float* pout,
@@ -345,6 +358,9 @@ lu_tile_kernel(const float* in, float* fout, float* pout,
   const int c0 = w * CW;
   const long long base =
       dbase != nullptr ? dbase[tile] * ld : static_cast<long long>(tile) * W * ld;
+  // the first slot of a run of equal dbase values stores, the others not
+  const bool store =
+      dbase == nullptr || tile == 0 || dbase[tile] != dbase[tile - 1];
 
   float a[RJ][CW];
   int pos[RJ];
@@ -407,6 +423,9 @@ lu_tile_kernel(const float* in, float* fout, float* pout,
     }
   }
 
+  if (!store) {
+    return;                         // no barrier follows
+  }
   // each row to its position: F's entries of this warp's columns, and P's
   // row there, one-hot at the row's own index
 #pragma unroll
@@ -513,10 +532,12 @@ extern "C" int tpt_lu_tiles(const float* in, float* f, float* p, int nt,
 }
 
 // lpool, upool: (rows, ld) f32, contiguous, 16-byte aligned, ld a multiple
-// of 4 and >= W; dbase: nt int64 first rows.  Factors the W x W tile at
-// rows dbase[t] .. dbase[t] + W - 1, columns 0 .. W - 1 of lpool in place:
-// F into those rows of lpool, P into the same rows of upool, columns
-// W .. ld - 1 of both zeroed.  Launches on `stream`, does not synchronise.
+// of 4 and >= W; dbase: nt int64 first rows, slots with the same first row
+// next to each other, tiles of different first rows disjoint.  Factors the
+// W x W tile at rows dbase[t] .. dbase[t] + W - 1, columns 0 .. W - 1 of
+// lpool in place: F into those rows of lpool, P into the same rows of
+// upool, columns W .. ld - 1 of both zeroed.  Launches on `stream`, does
+// not synchronise.
 extern "C" int tpt_lu_tiles_pool(float* lpool, float* upool,
                                  const long long* dbase, int nt, int W,
                                  int ld, float eps, float tol, void* stream) {

@@ -44,6 +44,7 @@ _ENTRY_POINTS = {
     "tpt_chain_probe": [_P, _I, _I, _P],
     "tpt_lu_tiles": [_P, _P, _P, _I, _I, _F, _F, _P],
     "tpt_lu_tiles_pool": [_P, _P, _P, _I, _I, _I, _F, _F, _P],
+    "tpt_lu_chain_probe": [_P, _I, _I, _P],
     "tpt_lu_empty": [_I, _I, _P],
     "tpt_trsm_tiles_batched": [_P, _P, _P, _I, _I, _I, _P],
     "tpt_trsm_tiles": [_P, _P, _P, _I, _I, _I, _P],

@@ -123,13 +123,16 @@ def _check_pool(L: torch.Tensor, U: torch.Tensor, dbase: torch.Tensor,
 
 
 def lu_tiles_pool_ref(L: torch.Tensor, U: torch.Tensor, dbase: torch.Tensor,
-                      W: int, eps: float, tol: float) -> None:
+                      W: int, eps: float, tol: float,
+                      lu=lu_tiles_ref) -> None:
     """Plain version of ``lu_tiles_pool``: the tiles gathered, factored by
-    ``lu_tiles_ref``, and F and P written back as whole pool rows, zero
-    past column W."""
+    ``lu`` (``lu_tiles_ref``; ``lu_tiles`` gives the gather path around
+    the batched kernel), and F and P written back as whole pool rows,
+    zero past column W.  Every tile is read before any is written, so
+    slots that share a tile write the same rows alike."""
     pw = L.shape[1]
     idx = dbase[:, None] + torch.arange(W, device=L.device)
-    Fk, Pk = lu_tiles_ref(L[:, :W][idx], eps, tol)
+    Fk, Pk = lu(L[:, :W][idx].contiguous(), eps, tol)
     rows = idx.reshape(-1)
     L.index_copy_(0, rows, pad(Fk, (0, pw - W)).reshape(-1, pw))
     U.index_copy_(0, rows, pad(Pk, (0, pw - W)).reshape(-1, pw))
@@ -139,9 +142,12 @@ def lu_tiles_pool(L: torch.Tensor, U: torch.Tensor, dbase: torch.Tensor,
                   W: int, eps: float, tol: float) -> None:
     """In place, for each t: the (W, W) tile at rows dbase[t] .. dbase[t]
     + W - 1, columns 0 .. W - 1 of the (rows, pw) f32 pool L becomes its
-    F, and the same rows of U its P, both rows zero past column W.  Tiles
-    may share rows only where their LU is the tile itself (the plan's
-    identity pad block)."""
+    F, and the same rows of U its P, both rows zero past column W.  Slots
+    that share a tile (the plan's padded slots on its pad block) must
+    stand next to each other in dbase; the kernel stores the first of
+    them only, so the shared tile becomes its LU once, as in the plain
+    version, whatever it holds.  Tiles of different rows must not
+    overlap."""
     dev = _check_pool(L, U, dbase, W)
     if dev.type == "cpu":
         lu_tiles_pool_ref(L, U, dbase, W, eps, tol)
