@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of tpusparse_torch on one CUDA card: the Cholesky solves
 (superscan, supernodal, fixed-tile with its updown), the LU solve (lusol
--> TpuLU -> SuperscanLU) and the device SpMV end to end, through their
-hand-written kernels.
+-> TpuLU -> SuperscanLU), the QR solve (qrsol -> MultifrontalQR, TpuQR,
+SparseQR) and the device SpMV end to end, through their hand-written
+kernels.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 3,8     (a partial run, while developing:
                                             phases 1 and 2 and those named,
-                                            of 3 4 5 6 8 9 10 11 12 13 14;
-                                            it prints no result lines)
+                                            of 3 4 5 6 8 9 10 11 12 13 14
+                                            15 16; it prints no result
+                                            lines)
 
 Phases (any failure raises, so the exit code is nonzero):
   1. device: a CUDA card is present; prints nvidia-smi's name and power
@@ -123,13 +125,47 @@ share and the longest kernels.
      matching (tol 1 solves, tol 0 is flagged); singular matrices give
      (False, None).
 
+ 15. the QR kernels against their plain versions within 1e-5 relative:
+     the corner fronts of the CPU tests (tau 2 and R = -x0 where the
+     part below the diagonal is zero, tau 0 on a zero column and past the
+     real rows, bit for bit); qr_panel (H2) at every panel of each
+     bucket's largest factor batch of the QR leg's plan and (after 16's
+     qrsol) of the g=363 plan, on diagonally dominant random fronts of
+     that shape, and at every panel of 16 of TpuQR on the dense route's
+     matrix (4,096 x 1,024: the first panels in device memory); qr_apply
+     (H3) both ways at each bucket's largest io batch of both factored
+     plans and on TpuQR's factor; times of kernel, plain version and the
+     nearest library call (torch.geqrf on the same panel columns,
+     torch.ormqr on the same reflectors: recorded, not asserted; the
+     g=363 shapes and TpuQR's go to the kernels line);
+ 16. the QR solves: BENCH_r05's QR leg (bench.py::sparse_ls_problem(
+     16384, 8192)) through MultifrontalQR, plan fields equal to the row's,
+     the launch counters reset just before the factor: one qr_panel per
+     panel (2,366) and nothing else, then solve_ls with one qr_apply per
+     io entry per pass (220), normal-equation residual <= 1e-14, factor
+     first and warm, a torch.profiler window over a warm factor and over
+     a Q^T b and Q y pair; qrsol(3, A, b) on the regularized Poisson
+     least squares [L; 0.5 I] at g=363 (m 263,538, n 131,769: the plan of
+     artifacts/bench_tpu_mfqr_131769.json, fields asserted), qr_panel
+     launched 25,960 times and qr_apply 399 times a pass, ne_resid <=
+     1e-14, plan, factor and solve times, peak device memory and a
+     profiler window over the warm factor's last batches that hold a
+     tenth of its panels; qrsol on the leg's transpose (min-norm, eq
+     residual <= 1e-14), on sparse_ls_problem(4096, 1024) (m n = 2^22:
+     the dense TpuQR, against numpy's lstsq within 1e-5), on the leg with
+     engine "csne" (SparseQR: the chol and trsm tile kernels launch,
+     residual <= 1e-14), and on matrices with an empty column on all
+     three routes: (False, None).
+
 The line before the last is {"kernels": [...]} (launches counted in
-phases 5, 8, 10, 13 and 14, errors and times measured in phases 3, 7, 12
-and 14, each a sum over the main-path shapes checked; the v2 SELL slabs,
-the LU tiles at tol 0 and 0.001 and the trsm kernel at the LU's shapes
-are checked but left out; an SpMV bound
-counts the bytes of the real entries, not the padding; chain_ms, beside
-the bound, is the chain floor of a tile kernel, null for the others);
+phases 5, 8, 10, 13, 14 and 16, errors and times measured in phases 3,
+7, 12, 14 and 15, each a sum over the main-path shapes checked; the v2
+SELL slabs, the LU tiles at tol 0 and 0.001, the trsm kernel at the
+LU's shapes and the QR kernels at the QR leg's shapes are checked but
+left out; an SpMV bound counts the bytes of the real entries, not the
+padding, a qr_apply bound the reflectors with tau != 0; chain_ms,
+beside the bound, is the chain floor of a tile kernel, null for the
+others);
 the last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -151,7 +187,9 @@ import torch
 import tpusparse_torch
 from tpusparse_torch.core import CSCMatrix
 from tpusparse_torch.demo import resid_metric
-from tpusparse_torch.device import solvers, superscan, superscan_lu
+from tpusparse_torch.device import dense, qr_tpu, solvers, superscan, \
+    superscan_lu
+from tpusparse_torch.device import mfqr as mfqr_mod
 from tpusparse_torch.device.chol_plan import plan_cholesky
 from tpusparse_torch.device.chol_tpu import TpuCholesky
 from tpusparse_torch.device.kernels import (_build, bell_spmv, bell_spmv_ref,
@@ -159,13 +197,17 @@ from tpusparse_torch.device.kernels import (_build, bell_spmv, bell_spmv_ref,
                                             dia_spmv, dia_spmv_ref,
                                             lu_tiles, lu_tiles_pool,
                                             lu_tiles_pool_ref, lu_tiles_ref,
-                                            sell_spmv, sell_spmv_ref,
+                                            qr_apply, qr_apply_ref, qr_panel,
+                                            qr_panel_ref, sell_spmv,
+                                            sell_spmv_ref,
                                             trsm_tiles, trsm_tiles_batched,
                                             trsm_tiles_batched_ref,
                                             trsm_tiles_blocked_ref,
                                             trsm_tiles_ref)
 from tpusparse_torch.device.kernels.sell_spmv import PACK
 from tpusparse_torch.device.lu_tpu import TpuLU
+from tpusparse_torch.device.mfqr import MultifrontalQR
+from tpusparse_torch.device.qr_tpu import TpuQR
 from tpusparse_torch.device.supernodal import SupernodalCholesky
 from tpusparse_torch.device.superscan import SuperscanCholesky
 from tpusparse_torch.device.superscan_lu import SuperscanLU
@@ -189,6 +231,19 @@ LU_CELL = dict(g=40, n=64000, nnz=438400, lnz=99966439,
                flops_true=158680853917, flops_padded=191099283584,
                waste=0.1696, segments=153)
 LU_PHASES = dict(chol=909, trsm=2406)
+# the QR leg of BENCH_r05 (bench.py::sparse_ls_problem(16384, 8192), its
+# mfqr row) and the full-size regularized Poisson least squares [L; 0.5 I]
+# of bench/bench_qr.py at g=363 (the plan of the TPU artifact
+# artifacts/bench_tpu_mfqr_131769.json), order 3: plan fields, H2 launches
+# of a factor (panels) and H3 launches of a Q^T or Q pass (io)
+QR_LEG = dict(m=16384, n=8192, nnz=62450, fronts=2031, levels=60,
+              flops_true=520378040, flops_padded=848629624, waste=0.3868,
+              panels=2366, io=220)
+QR_FULL = dict(g=363, m=263538, n=131769, nnz=789162, fronts=34623,
+               levels=144, flops_true=214012591916,
+               flops_padded=325485841408, waste=0.3425, rnz=16275224,
+               vnz=174837948, panels=25960, io=399)
+QR_DENSE = (4096, 1024)     # m n = 2^22: qrsol's dense route (TpuQR)
 UPDOWN_G = 12
 UPDOWN_RESID = 1e-12
 TOL = 1e-5          # kernel vs plain version, relative to max|plain|
@@ -223,6 +278,13 @@ KERNELS = {
     "lu_tiles": dict(fn=lu_tiles, ref=lu_tiles_ref,
                      source="tpusparse_torch/csrc/lu_tile.cu",
                      replaces="tpusparse/device/superscan_lu.py:104"),
+    # no Pallas counterparts: the JAX front QR is XLA-fused jnp code
+    "qr_panel": dict(fn=qr_panel, ref=qr_panel_ref,
+                     source="tpusparse_torch/csrc/qr_panel.cu",
+                     replaces="tpusparse/device/dense.py:239"),
+    "qr_apply": dict(fn=qr_apply, ref=qr_apply_ref,
+                     source="tpusparse_torch/csrc/qr_apply.cu",
+                     replaces="tpusparse/device/dense.py:303"),
 }
 STATS = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
                     bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, chain_ms=0.0)
@@ -394,6 +456,23 @@ def cuda_ms(fn, reps: int = 10, runs: int = 5, queued: bool = True) -> float:
     return statistics.median(ts)
 
 
+def once_ms(fn) -> float:
+    """Device time of one call of a slow ``fn`` (a plain version or a
+    batched library call of many milliseconds) by CUDA events, after one
+    warm-up call: the better of two."""
+    fn()
+    ts = []
+    for _ in range(2):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        ts.append(a.elapsed_time(b))
+    return min(ts)
+
+
 def bound_ms(nbytes: float, flops: float) -> tuple:
     """(least time on the card in ms, what bounds it): bytes over the
     device memory rate, operations over the fp32 rate."""
@@ -428,7 +507,7 @@ def rel_err(out: torch.Tensor, ref: torch.Tensor, what: str) -> tuple:
     """(max abs error, the same over max|ref|); raises above TOL."""
     sync()
     err = (out - ref).abs().max().item()
-    rel = err / ref.abs().max().item()
+    rel = err / ref.abs().max().item() if err else 0.0   # ref may be 0
     if not rel <= TOL:
         raise AssertionError(f"{what}: rel err {rel:.3e}")
     return err, rel
@@ -727,8 +806,9 @@ def phase_canonical(F: SuperscanCholesky, A: CSCMatrix, t_plan: float):
 
 def _timed(cls):
     """A subclass of the engine ``cls`` that records the plan / factor /
-    solve wall times of the factor object cholsol makes (sync: factor
-    ends on its finiteness check, solve on its download)."""
+    solve wall times of the factor object a solve driver makes (sync:
+    factor ends on its finiteness or rank check, solve on its
+    download)."""
     class Timed(cls):
         def __init__(self, *a, **kw):
             t0 = time.perf_counter()
@@ -864,7 +944,7 @@ def _profile_summary(prof, wall: float, named: dict = None) -> str:
             f"{busy_ms / (wall * 1e3):.3f}); top: {top}{split}")
 
 
-def device_profile(fn) -> str:
+def device_profile(fn, named: dict = None) -> str:
     """One fn() under torch.profiler, summed by _profile_summary."""
     sync()
     with _profiler() as prof:
@@ -872,7 +952,7 @@ def device_profile(fn) -> str:
         fn()
         sync()
         wall = time.perf_counter() - t0
-    return _profile_summary(prof, wall)
+    return _profile_summary(prof, wall, named)
 
 
 def fresh_memory() -> float:
@@ -1891,6 +1971,523 @@ def phase_spmv() -> dict:
     return totals
 
 
+# ------------------------------------------------------------------ QR
+def sparse_ls_problem(m: int, n: int, seed: int = 5) -> CSCMatrix:
+    """Sparse overdetermined LS, each row a few nearby columns (as
+    bench.py::sparse_ls_problem builds it, the QR leg of BENCH_r05)."""
+    rng = np.random.default_rng(seed)
+    per_row = 4
+    rows = np.repeat(np.arange(m), per_row)
+    base = (np.arange(m) * n) // m
+    offs = rng.integers(0, min(32, max(n // 64, 2)), (m, per_row))
+    offs[:, 0] = 0
+    cols = ((base[:, None] + offs) % n).reshape(-1)
+    vals = rng.normal(size=m * per_row)
+    key = np.unique(rows.astype(np.int64) * n + cols)
+    rows, cols = key // n, key % n
+    vals = rng.normal(size=rows.size) + 0.1
+    order = np.lexsort((rows, cols))
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(cols, minlength=n), out=indptr[1:])
+    return CSCMatrix(m, n, indptr, rows.astype(np.int64), vals)
+
+
+def poisson_ls(g: int) -> CSCMatrix:
+    """The regularized Poisson least squares [L; 0.5 I], L the 5-point
+    Laplacian on a g x g grid (as bench/bench_qr.py builds it)."""
+    n = g * g
+    ex = -np.ones(n - 1)
+    ex[np.arange(1, n) % g == 0] = 0.0
+    ey = -np.ones(n - g)
+    L = sp.diags([4.0 * np.ones(n), ex, ex, ey, ey], [0, 1, -1, g, -g],
+                 format="csc")
+    return _csc(sp.vstack([L, 0.5 * sp.eye(n)], format="csc"))
+
+
+def _qr_panels(plan) -> int:
+    """qr_panel launches of one factor: the panels of 8 columns of every
+    (level, bucket) batch."""
+    return sum(-(-min(b) // 8) for lf in plan.level_factor for b in lf)
+
+
+def _qr_io(plan) -> int:
+    """qr_apply launches of one Q^T or Q pass: one per io entry."""
+    return sum(len(li) for li in plan.level_io)
+
+
+def check_qr_plan(plan, A: CSCMatrix, want: dict) -> None:
+    got = dict(g=want.get("g"), m=plan.m, n=plan.n, nnz=int(A.indptr[-1]),
+               fronts=len(plan.fronts), levels=plan.nlevels,
+               flops_true=plan.flops_true, flops_padded=plan.flops_padded,
+               waste=round(plan.waste_ratio, 4), rnz=plan.rnz, vnz=plan.vnz,
+               panels=_qr_panels(plan), io=_qr_io(plan))
+    bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    if bad:
+        raise AssertionError(f"QR plan fields (got, want): {bad}")
+
+
+def _largest(batches) -> dict:
+    """{bucket: slots} of the largest batch of each bucket."""
+    out = {}
+    for b, sl in batches:
+        if b not in out or len(sl) > len(out[b]):
+            out[b] = sl
+    return out
+
+
+def _panel_cost(P: int, mm: int, pb: int) -> tuple:
+    """(bytes, FLOP) of one qr_panel: the panel read and written, V, T and
+    the taus written; per column j the norm, the pb dot products and the
+    update of the pb - j - 1 columns after it, over mm - j rows."""
+    nbytes = 4 * P * (3 * mm * pb + pb * pb + pb)
+    flops = P * sum((mm - j) * (3 + 2 * pb + 2 * (pb - j - 1))
+                    for j in range(pb))
+    return nbytes, flops
+
+
+def qr_factor_checked(M: torch.Tensor, taus: torch.Tensor, bs: int,
+                      kelim: int, label: str) -> int:
+    """dense.qr_factor_partial with every panel held against its plain
+    version on the same input (M, taus, V and T within TOL); returns the
+    panels checked."""
+    n = M.shape[2]
+    panels = dense._panel_starts(kelim, bs)
+    for k0, pb in panels:
+        Mr, tr = M.clone(), taus.clone()
+        Vr, Tr = qr_panel_ref(Mr, tr, k0, pb)
+        V, T = qr_panel(M, taus, k0, pb)
+        what = f"qr_panel {label} k0={k0} pb={pb}"
+        rel_err(M[:, k0:, k0:k0 + pb], Mr[:, k0:, k0:k0 + pb], what)
+        rel_err(taus[:, k0:k0 + pb], tr[:, k0:k0 + pb], what + " taus")
+        rel_err(V, Vr, what + " V")
+        rel_err(T, Tr, what + " T")
+        if k0 + pb < n:
+            rest = M[:, k0:, k0 + pb:]
+            W = torch.bmm(V.transpose(1, 2), rest)
+            rest.baddbmm_(V, torch.bmm(T.transpose(1, 2), W), alpha=-1.0)
+    return len(panels)
+
+
+def qr_panel_shape(M0: torch.Tensor, pb: int, label: str, phase: str,
+                   tally: bool) -> None:
+    """Times qr_panel on the first panel of the fronts M0 (in place on a
+    copy, the same work every call), its plain version and torch.geqrf on
+    the same panel columns (LAPACK's rule, not the JAX package's: a
+    yardstick only)."""
+    P, m, C = M0.shape
+    M, taus = M0.clone(), torch.zeros((P, C), device=DEV)
+    out = qr_panel(M, taus, 0, pb)
+    ref = qr_panel_ref(M0.clone(), torch.zeros((P, C), device=DEV), 0, pb)
+    err, rel = rel_err(out[0], ref[0], f"qr_panel {label} V")
+    ms = cuda_ms(lambda: qr_panel(M, taus, 0, pb))
+    nbytes, flops = _panel_cost(P, m, pb)
+    if not tally:
+        log(f"[{phase}] qr_panel {label}: max_abs_err {err:.3e} (rel "
+            f"{rel:.1e}), kernel {ms:.4f} ms, bound "
+            f"{bound_ms(nbytes, flops)[0]:.4f} ms")
+        return
+    Mp, tp = M0.clone(), torch.zeros((P, C), device=DEV)
+    pms = once_ms(lambda: qr_panel_ref(Mp, tp, 0, pb))
+    panel = M0[:, :, :pb].contiguous()
+    lms = once_ms(lambda: torch.geqrf(panel))
+    b = record("qr_panel", err, ms, pms, lms, nbytes, flops)
+    log(f"[{phase}] qr_panel {label}: max_abs_err {err:.3e} (rel "
+        f"{rel:.1e}), kernel {ms:.4f} ms, plain {pms:.4f} ms, geqrf "
+        f"{lms:.4f} ms, bound {b:.4f} ms")
+
+
+def qr_apply_shape(pool, taus, slots, kelim: int, label: str, phase: str,
+                   tally: bool, rng) -> None:
+    """qr_apply on the fronts ``slots`` of a factored pool, both ways,
+    against its plain version; timed beside torch.ormqr on the same
+    reflectors and taus.  The bound counts the reflectors this data has
+    (tau != 0): the kernel skips the others."""
+    S, Rh, C = pool.shape
+    z0 = torch.from_numpy(rng.normal(size=(S, Rh)).astype(np.float32)).to(
+        DEV)
+    live = (taus[slots, :kelim] != 0).cpu().numpy()
+    k = np.nonzero(live)[1]
+    P = len(slots)
+    nbytes = 4 * (int(np.sum(Rh - k - 1)) + P * kelim + 2 * P * Rh)
+    flops = 4 * int(np.sum(Rh - k))
+    V = pool[slots][:, :, :kelim].contiguous()
+    t = taus[slots][:, :kelim].contiguous()
+    zc = z0[slots][:, :, None].contiguous()
+    for transpose in (True, False):
+        z, zr = z0.clone(), z0.clone()
+        qr_apply(pool, taus, slots, z, kelim, transpose)
+        qr_apply_ref(pool, taus, slots, zr, kelim, transpose)
+        way = "Q^T" if transpose else "Q"
+        err, rel = rel_err(z, zr, f"qr_apply {way} {label}")
+        ms = cuda_ms(lambda: qr_apply(pool, taus, slots, z, kelim,
+                                      transpose))
+        head = (f"[{phase}] qr_apply {way} {label} ({int(live.sum())} live "
+                f"reflectors): max_abs_err {err:.3e} (rel {rel:.1e}), "
+                f"kernel {ms:.4f} ms")
+        if not tally:
+            log(f"{head}, bound {bound_ms(nbytes, flops)[0]:.4f} ms")
+            continue
+        pms = once_ms(lambda: qr_apply_ref(pool, taus, slots, zr, kelim,
+                                           transpose))
+        lms = once_ms(lambda: torch.ormqr(V, t, zc, left=True,
+                                          transpose=transpose))
+        b = record("qr_apply", err, ms, pms, lms, nbytes, flops)
+        log(f"{head}, plain {pms:.4f} ms, ormqr {lms:.4f} ms, bound "
+            f"{b:.4f} ms")
+
+
+def qr_corner_fronts() -> None:
+    """The CPU test's corner fronts on the card: reflected columns whose
+    part below the diagonal is already zero (tau 2 exactly, R = -x0) and
+    a zero column (tau 0), bit for bit in sign."""
+    rng = np.random.default_rng(7)
+    M = rng.normal(size=(4, 12, 16)).astype(np.float32)
+    M[:, :, 0] = 0.0
+    M[:, 0, 0] = -3.0
+    M[:, 2:, 1] = 0.0
+    M[:, 1, 1] = 2.0
+    M[:, :, 3] = 0.0
+    M[:, 10:, :] = 0.0
+    M[1, 0, 0] = 4.0
+    Md = torch.from_numpy(M).to(DEV)
+    taus = torch.zeros((4, 16), device=DEV)
+    qr_factor_checked(Md, taus, 8, 12, "corner fronts")
+    t, R = taus.cpu().numpy(), Md.cpu().numpy()
+    if not ((t[:, :2] == 2.0).all() and (t[:, 3] == 0.0).all()
+            and (t[:, 10:12] == 0.0).all() and R[0, 0, 0] == 3.0
+            and R[1, 0, 0] == -4.0 and (R[:, 1, 1] == -2.0).all()):
+        raise AssertionError(f"qr_panel corner fronts: taus {t[:, :4]}, "
+                             f"R diagonal {R[:, [0, 1], [0, 1]]}")
+    log("[15] qr_panel corner fronts: tau 2 and R = -x0 where the part "
+        "below the diagonal is zero (x0 = -3, 4, 2), tau 0 on the zero "
+        "column and past the real rows, bit for bit")
+
+
+def phase_qr_kernels(plan, pools=None, tally: bool = False,
+                     label: str = "", phase: str = "15") -> None:
+    """qr_panel at every panel of each bucket's largest factor batch of
+    ``plan``, each panel against its plain version, and qr_apply both
+    ways at each bucket's largest io batch of the factored ``pools``
+    (F.pools, F.taus); with ``tally`` the times of each bucket's first
+    panel and of its applies go to the kernels line.  The panels factor
+    random fronts of the batch's shape with a dominant diagonal
+    (4 sqrt(Rh), as the chol checks take SPD tiles): a sparse front's
+    columns past its rank are rounding noise after elimination, which
+    the Householder rule scales up to O(1), and among 10,919 plain random
+    fronts some trailing block is ill-conditioned enough to spread
+    rounding past 1e-5, so two correct factors (kernel and plain
+    version, or two packages) can differ there.  The reflectors of the
+    real factor are applied, which is stable."""
+    rng = np.random.default_rng(15)
+    batches = [(b, sl) for lf in plan.level_factor for b, sl in lf.items()]
+    npanels = 0
+    for b, sl in sorted(_largest(batches).items()):
+        init = torch.from_numpy(rng.normal(size=(len(sl), *b)).astype(
+            np.float32)).to(DEV)
+        init += 4 * b[0] ** 0.5 * torch.eye(*b, device=DEV)
+        npanels += qr_factor_checked(
+            init.clone(), torch.zeros((len(sl), b[1]), device=DEV), 8,
+            min(b), f"{label} {b} P={len(sl)}")
+        qr_panel_shape(init, min(8, min(b)), f"{label} {b} P={len(sl)} "
+                       f"k0=0", phase, tally)
+    log(f"[{phase}] qr_panel {label}: {npanels} panels of the "
+        f"{len(set(b for b, _ in batches))} buckets' largest batches "
+        f"agree with the plain version")
+    if pools is None:
+        return
+    P, T = pools
+    io = [(b, sl) for li in plan.level_io for b, (sl, _, _) in li.items()]
+    for b, sl in sorted(_largest(io).items()):
+        slots = torch.from_numpy(sl.astype(np.int64)).to(DEV)
+        qr_apply_shape(P[b], T[b], slots, min(b), f"{label} {b} "
+                       f"P={len(sl)}", phase, tally, rng)
+
+
+QR_CLASSES = ("MultifrontalQR", "SparseQR", "TpuQR")
+
+
+def timed_qrsol(A: CSCMatrix, b: np.ndarray, **kw) -> tuple:
+    """tpusparse_torch.qrsol(3, A, b, device=DEV, **kw) with the launch
+    counters reset just before it: returns (the factor objects it made,
+    ok, x, launches, wall s)."""
+    orig = {name: getattr(solvers, name) for name in QR_CLASSES}
+    seen = {name: _timed(cls) for name, cls in orig.items()}
+    for name, cls in seen.items():
+        setattr(solvers, name, cls)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        ok, x = tpusparse_torch.qrsol(3, A, b, device=DEV, **kw)
+        sync()
+        t_all = time.perf_counter() - t0
+        counts = launches()
+    finally:
+        for name, cls in orig.items():
+            setattr(solvers, name, cls)
+    made = [F for cls in seen.values() for F in cls.made]
+    return made, ok, x, counts, t_all
+
+
+def _aug_solves(info: dict, rtol: float = 1e-14) -> int:
+    """The augmented solves (one Q^T and one Q pass each) of a solve_ls
+    that left ``info``: one per iteration, but none in the last if it
+    stopped there on ``rtol``."""
+    stopped = max(info["ne_resid"], info["aug_resid"]) < rtol
+    return info["iters"] - 1 if stopped else info["iters"]
+
+
+def ne_resid(A: CSCMatrix, x: np.ndarray, b: np.ndarray) -> float:
+    """max|A'(A x - b)| / (||A||_1^2 max|x| + max|A'(A x - b)|), the
+    normal-equation residual bench/bench_qr.py reports."""
+    from tpusparse_torch.core.ops import gaxpy, norm1, transpose
+    r = gaxpy(A, x, -np.asarray(b, np.float64))
+    nr = gaxpy(transpose(A, values=True), r, np.zeros(A.n))
+    return float(np.abs(nr).max() / (norm1(A) ** 2 * np.abs(x).max()
+                                     + np.abs(nr).max() + 1e-300))
+
+
+def profile_qr_factor(F: MultifrontalQR, share: float) -> str:
+    """A warm F.factor() with torch.profiler on only over its last
+    (level, bucket) batches that hold ``share`` of its panels (all of
+    them for share 1), summed by _profile_summary with H2's and H3's
+    kernels named."""
+    sizes = [-(-kelim // 8) for lvl in F._sched.factor for _, kelim, _ in lvl]
+    first = len(sizes)
+    while first and sum(sizes[first:]) < share * sum(sizes):
+        first -= 1
+    inner, prof, seen, t = mfqr_mod.qr_factor_partial, _profiler(), [0], {}
+
+    def factor_partial(*args):
+        if seen[0] == first:
+            sync()
+            prof.start()
+            t["start"] = time.perf_counter()
+        inner(*args)
+        seen[0] += 1
+
+    mfqr_mod.qr_factor_partial = factor_partial
+    try:
+        if not F.factor():
+            raise AssertionError("QR profiled factor failed")
+        sync()
+        t["wall"] = time.perf_counter() - t["start"]
+        prof.stop()
+    finally:
+        mfqr_mod.qr_factor_partial = inner
+    return (f"batches {first}-{len(sizes) - 1} of {len(sizes)} "
+            f"({sum(sizes[first:])} of {sum(sizes)} panels, the rank check "
+            f"included): " + _profile_summary(prof, t["wall"], QR_NAMED))
+
+
+QR_NAMED = {"H2": "qr_panel_kernel", "H3": "qr_apply_kernel"}
+
+
+def phase_qr_leg(F: MultifrontalQR, A: CSCMatrix, t_plan: float) -> dict:
+    """BENCH_r05's QR leg through MultifrontalQR: returns the launches of
+    its first factor and LS solve."""
+    check_qr_plan(F.plan, A, QR_LEG)
+    base = fresh_memory()
+    reset_launches()
+    t0 = time.perf_counter()
+    ok = F.factor()
+    t_first = time.perf_counter() - t0
+    counts = launches()
+    want = {name: 0 for name in KERNELS}
+    want["qr_panel"] = QR_LEG["panels"]
+    if not ok or counts != want:
+        raise AssertionError(f"QR leg factor {ok}, launches {counts}")
+    t_warm = min(timed_call(F.factor)[1] for _ in range(3))
+    b = np.random.default_rng(16).normal(size=A.m)
+    reset_launches()
+    x, t_solve = timed_call(lambda: F.solve_ls(b))
+    n_apply = launches()["qr_apply"]
+    naug = _aug_solves(F.last_info)
+    if n_apply != 2 * naug * QR_LEG["io"]:
+        raise AssertionError(f"QR leg solve: {n_apply} qr_apply launches "
+                             f"for {naug} augmented solves")
+    counts["qr_apply"] = n_apply
+    r = ne_resid(A, x, b)
+    if not (F.last_info["ne_resid"] <= RESID and r <= RESID
+            and np.all(np.isfinite(x))):
+        raise AssertionError(f"QR leg: {F.last_info}, ne residual {r:.3e}")
+    y = F.apply_qt(b)
+    rt = np.abs(F.apply_q(y) - b).max() / np.abs(b).max()
+    log(f"[16] QR leg m={A.m} n={A.n} (BENCH_r05's mfqr row): plan "
+        f"{t_plan:.2f} s, {len(F.plan.fronts)} fronts, {F.plan.nlevels} "
+        f"levels, flops_true {F.plan.flops_true}, flops_padded "
+        f"{F.plan.flops_padded}, waste {F.plan.waste_ratio:.4f}; factor "
+        f"first {t_first:.3f} s, warm {t_warm * 1e3:.1f} ms "
+        f"({F.plan.flops_true / t_warm / 1e9:.2f} GFLOP/s true); solve_ls "
+        f"{t_solve:.3f} s {F.last_info}, normal-equation residual "
+        f"{r:.3e}, Q roundtrip {rt:.2e}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB (of it "
+        f"{base:.0f} MiB held before); launches {counts}")
+    log(f"[16] QR leg warm factor profiled, {profile_qr_factor(F, 1.0)}")
+    log(f"[16] QR leg Q^T b and Q y profiled: "
+        + device_profile(lambda: F.apply_q(F.apply_qt(b)), QR_NAMED))
+    return counts
+
+
+def timed_call(fn) -> tuple:
+    """(fn(), wall s), ending on a sync."""
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def phase_qr_full() -> tuple:
+    """qrsol(3, A, b) on the regularized Poisson LS at g=363 (the
+    multifrontal route); returns (its launches, its MultifrontalQR)."""
+    A = poisson_ls(QR_FULL["g"])
+    b = 1.0 + np.arange(A.m) / A.m                  # bench_qr.py's b
+    base = fresh_memory()
+    made, ok, x, counts, t_all = timed_qrsol(A, b)
+    if not ok or [type(F).__mro__[1].__name__ for F in made] != [
+            "MultifrontalQR"]:
+        raise AssertionError(f"qrsol g=363: ok {ok}, made {made}")
+    F = made[0]
+    check_qr_plan(F.plan, A, QR_FULL)
+    naug = _aug_solves(F.last_info)
+    want = {name: 0 for name in KERNELS}
+    want.update(qr_panel=QR_FULL["panels"],
+                qr_apply=2 * naug * QR_FULL["io"])
+    if counts != want:
+        raise AssertionError(f"qrsol g=363 launches {counts}, want {want}")
+    r = ne_resid(A, x, b)
+    if not (F.last_info["ne_resid"] <= RESID and r <= RESID
+            and x.shape == (A.n,) and np.all(np.isfinite(x))):
+        raise AssertionError(f"qrsol g=363: {F.last_info}, ne residual "
+                             f"{r:.3e}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t_warm = min(timed_call(F.factor)[1] for _ in range(2))
+    log(f"[16] qrsol g=363 m={A.m} n={A.n} nnz {int(A.indptr[-1])}: plan "
+        f"{F.t['plan']:.2f} s, {len(F.plan.fronts)} fronts, "
+        f"{F.plan.nlevels} levels, {len(F.plan.buckets)} buckets, "
+        f"flops_true {F.plan.flops_true}, flops_padded "
+        f"{F.plan.flops_padded}, waste {F.plan.waste_ratio:.4f}, rnz "
+        f"{F.plan.rnz}, vnz {F.plan.vnz}; factor first "
+        f"{F.t['factor'][0]:.3f} s, warm {t_warm:.3f} s "
+        f"({F.plan.flops_true / t_warm / 1e9:.2f} GFLOP/s true); qrsol "
+        f"total {t_all:.2f} s (solve_ls "
+        f"{t_all - F.t['plan'] - F.t['factor'][0]:.2f} s) {F.last_info}, "
+        f"normal-equation residual {r:.3e}; peak device memory "
+        f"{peak:.2f} GiB (of it {base / 1024:.2f} GiB held before); "
+        f"launches {counts}")
+    log(f"[16] qrsol g=363 warm factor profiled, "
+        f"{profile_qr_factor(F, 0.1)}")
+    return counts, F
+
+
+def phase_qr_routes(A_leg: CSCMatrix) -> dict:
+    """qrsol's other routes: min-norm on the QR leg's transpose, the
+    dense TpuQR, the Q-less csne, and rank-deficient matrices.  Returns
+    the QR kernels' launches of the first three (main paths)."""
+    total = {name: 0 for name in KERNELS}
+    from tpusparse_torch.core.ops import gaxpy, norm1, transpose
+    At = transpose(A_leg, values=True)
+    bm = np.random.default_rng(17).normal(size=At.m)
+    made, ok, x, counts, t_all = timed_qrsol(At, bm)
+    F = made[0] if made else None
+    eq = np.abs(bm - gaxpy(At, x, np.zeros(At.m))).max() / (
+        norm1(At) * np.abs(x).max() + np.abs(bm).max()) if ok else None
+    if not (ok and type(F).__mro__[1].__name__ == "MultifrontalQR"
+            and F.last_info["eq_resid"] <= RESID and eq <= RESID):
+        raise AssertionError(f"qrsol min-norm: ok {ok}, {made}, eq {eq}")
+    log(f"[16] qrsol min-norm, the QR leg's transpose m={At.m} n={At.n}: "
+        f"total {t_all:.2f} s {F.last_info}, eq residual {eq:.3e}, "
+        f"launches {counts}")
+    for k in ("qr_panel", "qr_apply"):
+        total[k] += counts[k]
+
+    m, n = QR_DENSE
+    A = sparse_ls_problem(m, n)
+    b = np.random.default_rng(18).normal(size=m)
+    made, ok, x, counts, t_all = timed_qrsol(A, b)
+    if not (ok and [type(F).__mro__[1].__name__ for F in made] == ["TpuQR"]
+            and counts["qr_panel"] == n // 16 and counts["qr_apply"] > 0):
+        raise AssertionError(f"qrsol dense: ok {ok}, {made}, {counts}")
+    xd = np.linalg.lstsq(A.toscipy().toarray(), b, rcond=None)[0]
+    rel = np.abs(x - xd).max() / np.abs(xd).max()
+    if not rel <= 1e-5:                  # an f32 QR refined twice
+        raise AssertionError(f"qrsol dense: rel err {rel:.3e}")
+    log(f"[16] qrsol dense route m={m} n={n} (m n = 2^22: TpuQR, panels "
+        f"of 16, the first of 4,096 rows in device memory): total "
+        f"{t_all:.2f} s (of it TpuQR's densify and factor "
+        f"{made[0].t['plan']:.2f} s), rel err against lstsq {rel:.2e}, "
+        f"launches {counts}")
+    for k in ("qr_panel", "qr_apply"):
+        total[k] += counts[k]
+
+    b = np.random.default_rng(19).normal(size=A_leg.m)
+    made, ok, x, counts, t_all = timed_qrsol(A_leg, b, engine="csne")
+    F = made[0] if made else None
+    r = ne_resid(A_leg, x, b) if ok else None
+    if not (ok and type(F).__mro__[1].__name__ == "SparseQR"
+            and counts["chol_tiles"] > 0 and counts["trsm_tiles_batched"] > 0
+            and F.last_info.get("ne_resid", 1.0) <= RESID and r <= RESID):
+        raise AssertionError(f"qrsol csne: ok {ok}, {made}, {counts}, "
+                             f"{F.last_info if F else None}, {r}")
+    log(f"[16] qrsol csne route on the QR leg: SparseQR (superscan "
+        f"Cholesky of A'A, {len(F.plan.panels)} panels), total "
+        f"{t_all:.2f} s {F.last_info}, normal-equation residual {r:.3e}, "
+        f"launches {counts}")
+
+    d = sparse_ls_problem(QR_DENSE[0], 2 * QR_DENSE[1]).toscipy().tolil()
+    d[:, 7] = 0.0                             # an empty column
+    for label, M, kw in (
+            ("mfqr", _csc(d), {}), ("csne", _csc(d), {"engine": "csne"}),
+            ("dense", _csc(d[:, :QR_DENSE[1]]), {})):
+        out = tpusparse_torch.qrsol(3, M, np.ones(M.m), device=DEV, **kw)
+        if out != (False, None):
+            raise AssertionError(f"qrsol rank-deficient ({label}): {out}")
+    log("[16] structurally rank-deficient (an empty column) on the mfqr, "
+        "csne and dense routes: qrsol -> (False, None)")
+    return total
+
+
+def phase_qr_first(F: MultifrontalQR) -> None:
+    """Phase 15 before the QR solves: the corner fronts, the QR leg's
+    plan (its factor first, off the launch counts) and TpuQR's panels."""
+    qr_corner_fronts()
+    if not F.factor():
+        raise AssertionError("QR leg factor failed")
+    phase_qr_kernels(F.plan, (F.pools, F.taus), False, "QR leg")
+    phase_qr_dense_kernels()
+
+
+def phase_qr_dense_kernels() -> None:
+    """TpuQR's panels of 16 on the dense route's matrix (4,096 x 1,024,
+    the first panels too tall for shared memory, so in device memory),
+    each against its plain version, and its Q^T / Q applies; the first
+    panel and the applies to the kernels line."""
+    captured = []
+    inner = qr_tpu.blocked_qr
+
+    def blocked_qr(M, bs):
+        captured.append(M.clone())
+        return inner(M, bs)
+
+    qr_tpu.blocked_qr = blocked_qr
+    try:
+        T = TpuQR(sparse_ls_problem(*QR_DENSE), device=DEV)
+    finally:
+        qr_tpu.blocked_qr = inner
+    M = captured[0][None]
+    m, n = M.shape[1:]
+    panels = qr_factor_checked(M.clone(), torch.zeros((1, n), device=DEV),
+                               16, n, f"TpuQR {m}x{n}")
+    log(f"[15] qr_panel TpuQR {m}x{n}: {panels} panels of 16 agree with the "
+        f"plain version")
+    qr_panel_shape(M, 16, f"TpuQR ({m}, {n}) P=1 k0=0 (device memory)",
+                   "15", True)
+    qr_apply_shape(T.VR[None].contiguous(), T.taus[None].contiguous(),
+                   torch.zeros(1, dtype=torch.int64, device=DEV), n,
+                   f"TpuQR ({m}, {n}) P=1", "15", True,
+                   np.random.default_rng(20))
+
+
 def timed(label: str, fn, *args):
     """fn(*args), then a line with its wall time."""
     t0 = time.perf_counter()
@@ -1899,7 +2496,8 @@ def timed(label: str, fn, *args):
     return out
 
 
-PHASES = ("3", "4", "5", "6", "8", "9", "10", "11", "12", "13", "14")
+PHASES = ("3", "4", "5", "6", "8", "9", "10", "11", "12", "13", "14", "15",
+          "16")
 
 
 def main() -> None:
@@ -1964,6 +2562,28 @@ def main() -> None:
         lu_counts = timed("14", phase_lusol)
         for name in ("lu_tiles", "trsm_tiles_batched"):
             counts[name] += lu_counts[name]
+        fresh_memory()
+    if want & {"15", "16"}:
+        A = sparse_ls_problem(QR_LEG["m"], QR_LEG["n"])
+        t0 = time.perf_counter()
+        F = MultifrontalQR(A, device=DEV)
+        t_plan = time.perf_counter() - t0
+        if "15" in want:
+            timed("15", phase_qr_first, F)
+        if "16" in want:
+            qr_counts = timed("16, QR leg", phase_qr_leg, F, A, t_plan)
+            del F
+            fresh_memory()
+            full_counts, F = timed("16, g=363", phase_qr_full)
+            if "15" in want:
+                timed("15, g=363 batches", phase_qr_kernels, F.plan,
+                      (F.pools, F.taus), True, "g=363")
+            del F
+            fresh_memory()
+            route_counts = timed("16, routes", phase_qr_routes, A)
+            for name in ("qr_panel", "qr_apply"):
+                counts[name] += (qr_counts[name] + full_counts[name]
+                                 + route_counts[name])
     log(f"[end] wall time {time.perf_counter() - t_start:.1f} s")
     if want != set(PHASES):
         log(f"partial run (phases {sorted(want, key=PHASES.index)}): no "

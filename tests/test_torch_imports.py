@@ -87,8 +87,9 @@ def test_relative_imports_resolve_inside_the_port():
 def test_import_does_not_load_jax():
     """A fresh interpreter imports the port, plans a superscan, a
     supernodal and a fixed-tile factor and an SpMV (sell, after RCM),
-    solves with lusol and factors a SuperscanLU on the CPU, and has
-    loaded neither jax nor any module of tpusparse."""
+    solves with lusol, factors a SuperscanLU and solves with qrsol on its
+    three routes on the CPU, and has loaded neither jax nor any module of
+    tpusparse."""
     code = (
         "import sys\n"
         "pre = 'jax' in sys.modules\n"
@@ -110,6 +111,13 @@ def test_import_does_not_load_jax():
         "                   atol=1e-4)\n"
         "assert tpusparse_torch.lusol(1, A, np.ones(300), device='cpu')[0]\n"
         "assert tpusparse_torch.SuperscanLU(A, device='cpu').factor()\n"
+        "import os\n"
+        "T = csc_from_dense(d[:, :120])\n"
+        "for env in ({}, {'TPUSPARSE_QR_DENSE_MAX': '100'},\n"
+        "            {'TPUSPARSE_QR_ENGINE': 'csne'}):\n"
+        "    os.environ.update(env)\n"
+        "    assert tpusparse_torch.qrsol(3, T, np.ones(300),\n"
+        "                                 device='cpu')[0]\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'tpusparse'))\n"
         "print(pre, bad == [], bad[:5])\n")
@@ -192,6 +200,13 @@ _COPIES = [
       for name in ("Timer", "Metrics", "flop_report")],
     ("tpusparse/device/superscan_lu.py::SuperscanLU._scatter_values",
      "tpusparse_torch/device/superscan_lu.py::SuperscanLU._scatter_values"),
+    ("tpusparse/symbolic/plan.py", "tpusparse_torch/symbolic/plan.py"),
+    *[(f"tpusparse/numeric/{name}.py", f"tpusparse_torch/numeric/{name}.py")
+      for name in ("chol", "lu", "qr", "solvers")],
+    *[(f"tpusparse/device/mfqr.py::{name}",
+       f"tpusparse_torch/device/mfqr_plan.py::{name}")
+      for name in ("_padded_flops", "_cluster_shapes", "_ground", "_Front",
+                   "MfqrPlan", "plan_mfqr")],
 ]
 
 

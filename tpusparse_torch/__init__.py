@@ -27,10 +27,12 @@ tests/test_torch_imports.py.
   tpusparse_torch.csrc                   the CUDA sources
 """
 
-from .device import (SpmvPlan, SupernodalCholesky, SuperscanCholesky,
-                     SuperscanLU, TpuCholesky, TpuLU, cholsol,
-                     gaxpy_device, lusol, spmv_plan)
+from .device import (MultifrontalQR, SparseQR, SpmvPlan,
+                     SupernodalCholesky, SuperscanCholesky, SuperscanLU,
+                     TpuCholesky, TpuLU, TpuQR, cholsol, gaxpy_device,
+                     lusol, qrsol, spmv_plan)
 
-__all__ = ["SpmvPlan", "SupernodalCholesky", "SuperscanCholesky",
-           "SuperscanLU", "TpuCholesky", "TpuLU", "cholsol",
-           "gaxpy_device", "lusol", "spmv_plan"]
+__all__ = ["MultifrontalQR", "SparseQR", "SpmvPlan", "SupernodalCholesky",
+           "SuperscanCholesky", "SuperscanLU", "TpuCholesky", "TpuLU",
+           "TpuQR", "cholsol", "gaxpy_device", "lusol", "qrsol",
+           "spmv_plan"]

@@ -3,7 +3,9 @@ from .chol_tpu import TpuCholesky, plan_cholesky
 from .config import DTYPE
 from .refine import refine
 from .lu_tpu import TpuLU
-from .solvers import cholsol, lusol
+from .mfqr import MultifrontalQR, plan_mfqr
+from .qr_tpu import SparseQR, TpuQR
+from .solvers import cholsol, lusol, qrsol
 from .spmv import (SpmvPlan, gaxpy_device, plan_from_numpy, plan_to_numpy,
                    spmv_plan)
 from .superscan import (SuperscanCholesky, plan_superscan,
@@ -16,4 +18,5 @@ __all__ = ["config", "DTYPE", "refine", "cholsol", "SuperscanCholesky",
            "SpmvPlan", "spmv_plan", "gaxpy_device", "plan_from_numpy",
            "plan_to_numpy", "SupernodalCholesky", "plan_supernodal",
            "TpuCholesky", "plan_cholesky", "lusol", "TpuLU",
-           "SuperscanLU"]
+           "SuperscanLU", "qrsol", "MultifrontalQR", "plan_mfqr", "TpuQR",
+           "SparseQR"]

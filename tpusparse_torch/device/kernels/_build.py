@@ -51,6 +51,8 @@ _ENTRY_POINTS = {
     "tpt_dia_spmv": [_P, _P, _P, _P, _I, _I, _I, _P],
     "tpt_sell_spmv": [_P] * 9 + [_I] * 4 + [_P],
     "tpt_bell_spmv": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tpt_qr_panel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "tpt_qr_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -363,3 +363,24 @@ class SuperscanCholesky:
         if self.pools is None and not self.factor():
             raise ValueError("matrix is not positive definite")
         return refine(self.A, self._solve_f32, b, iters=refine_iters)
+
+    def extract_L(self) -> CSCMatrix:
+        """The factored pools as a host CSC L (permuted coordinates,
+        diagonal-first columns, true pattern only), as the JAX
+        ``SuperscanCholesky.extract_L`` gives it."""
+        if self.pools is None:
+            raise ValueError("factor() first")
+        plan = self.plan
+        host = pools_to_numpy(self.pools)
+        rows, vals, cnt = [], [], np.zeros(plan.n + 1, np.int64)
+        for pl in sorted(plan.panels, key=lambda pl: pl.c0):
+            buf = host[pl.pool]
+            for c in range(pl.w):
+                j = pl.c0 + c
+                rows += [np.arange(j, pl.c0 + pl.w), pl.rows]
+                vals += [buf[pl.rbase + c + np.arange(pl.w - c), c],
+                         buf[pl.rbase + pl.W + np.arange(pl.rows.size), c]]
+                cnt[j + 1] = pl.w - c + pl.rows.size
+        return CSCMatrix(plan.n, plan.n, np.cumsum(cnt),
+                         np.concatenate(rows).astype(np.int64),
+                         np.concatenate(vals).astype(np.float64))
