@@ -17,7 +17,8 @@ Phases (any failure raises, so the exit code is nonzero):
      limit;
   2. build: nvcc builds tpusparse_torch/csrc/*.cu into build/ (first use);
      ptxas's registers and spills per kernel; no instance of the LU tile
-     kernel may spill;
+     kernel (16) or of the QR panel kernels (11 warp, 3 block, 2
+     device-memory instances) may use local memory;
   3. kernels vs plain versions on the card, at every chol W and trsm
      (H, W) of the canonical plan, at its largest per-step batch, within
      1e-5 relative (W=128 is one tile, the (1, 128, 128) every panel of
@@ -128,16 +129,22 @@ share and the longest kernels.
  15. the QR kernels against their plain versions within 1e-5 relative:
      the corner fronts of the CPU tests (tau 2 and R = -x0 where the
      part below the diagonal is zero, tau 0 on a zero column and past the
-     real rows, bit for bit); qr_panel (H2) at every panel of each
-     bucket's largest factor batch of the QR leg's plan and (after 16's
-     qrsol) of the g=363 plan, on diagonally dominant random fronts of
-     that shape, and at every panel of 16 of TpuQR on the dense route's
-     matrix (4,096 x 1,024: the first panels in device memory); qr_apply
-     (H3) both ways at each bucket's largest io batch of both factored
-     plans and on TpuQR's factor; times of kernel, plain version and the
-     nearest library call (torch.geqrf on the same panel columns,
-     torch.ormqr on the same reflectors: recorded, not asserted; the
-     g=363 shapes and TpuQR's go to the kernels line);
+     real rows, a zero column whose x0 is -0.0 keeping R's -0.0, bit for
+     bit); qr_panel (H2) at every panel of each bucket's largest factor
+     batch of the QR leg's plan and (after 16's qrsol) of the g=363 plan,
+     on diagonally dominant random fronts of that shape, at every panel
+     of 16 of TpuQR on the dense route's matrix (4,096 x 1,024: each on a
+     thread-block cluster), and on one panel taller than the largest
+     cluster (65,536 x 16: the device-memory path); qr_apply (H3) both
+     ways at each bucket's largest io batch of both factored plans and on
+     TpuQR's factor; times of kernel, plain version and the nearest
+     library call (torch.geqrf on the same panel columns, by cuda_ms;
+     torch.ormqr on the same reflectors, recorded, not asserted), and
+     H2's chain floor (tpt_qr_chain_probe: one column step on one warp
+     times pb); the g=363 shapes and TpuQR's go to the kernels line.
+     Yardstick: qr_panel no slower than geqrf at every shape of the
+     kernels line and of the QR leg, and summed over the kernels line's
+     shapes (the 65,536-row panel is printed beside geqrf, not held);
  16. the QR solves: BENCH_r05's QR leg (bench.py::sparse_ls_problem(
      16384, 8192)) through MultifrontalQR, plan fields equal to the row's,
      the launch counters reset just before the factor: one qr_panel per
@@ -164,8 +171,8 @@ SELL slabs, the LU tiles at tol 0 and 0.001, the trsm kernel at the
 LU's shapes and the QR kernels at the QR leg's shapes are checked but
 left out; an SpMV bound counts the bytes of the real entries, not the
 padding, a qr_apply bound the reflectors with tau != 0; chain_ms,
-beside the bound, is the chain floor of a tile kernel, null for the
-others);
+beside the bound, is the chain floor of a tile kernel or of qr_panel,
+null for the others);
 the last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -244,6 +251,7 @@ QR_FULL = dict(g=363, m=263538, n=131769, nnz=789162, fronts=34623,
                flops_padded=325485841408, waste=0.3425, rnz=16275224,
                vnz=174837948, panels=25960, io=399)
 QR_DENSE = (4096, 1024)     # m n = 2^22: qrsol's dense route (TpuQR)
+QR_TALL = 65536     # rows of a panel of 16 taller than H2's largest cluster
 UPDOWN_G = 12
 UPDOWN_RESID = 1e-12
 TOL = 1e-5          # kernel vs plain version, relative to max|plain|
@@ -287,7 +295,8 @@ KERNELS = {
                      replaces="tpusparse/device/dense.py:303"),
 }
 STATS = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-                    bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, chain_ms=0.0)
+                    bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, chain_ms=0.0,
+                    shapes=0)
          for name in KERNELS}
 SELL_READ_MAX = 1.15    # bytes the SELL kernel reads / bytes needed
 
@@ -492,6 +501,7 @@ def record(name: str, err: float, ms: float, pms: float, lms: float,
     s["bound_ms"] += b
     s["bytes_ms"] += nbytes / HBM_BPS * 1e3
     s["ops_ms"] += flops / FP32_FLOPS * 1e3
+    s["shapes"] += 1
     return b
 
 
@@ -547,20 +557,26 @@ def phase_build() -> None:
         f" s, one process per source) -> {_build._target()}")
     with open(_build._target() + ".log") as f:      # ptxas -v, per kernel
         said = f.read().replace("ptxas info    : ", "").splitlines()
-    lu, spills = 0, []
+    # instances that may use no local memory, and how many there are
+    held = {"lu_tile_kernel": 0, "qr_panel_warp_kernel": 0,
+            "qr_panel_block_kernel": 0, "qr_panel_gmem_kernel": 0}
+    spills = []
     for i, line in enumerate(said[:-2]):
         if line.startswith("Function properties for"):
             log(f"[2] ...{line.split()[-1][-44:]}: {said[i + 2].strip()}; "
                 f"{said[i + 1].strip()}")
-            if "lu_tile_kernel" in line:
-                lu += 1
-                if not said[i + 1].strip().startswith(
-                        "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
-                        "spill loads"):
-                    spills.append(line.split()[-1])
-    if lu != 16 or spills:
-        raise AssertionError(f"{lu} lu_tile_kernel instances (want 16), "
-                             f"with local memory: {spills}")
+            for name in held:
+                if name in line:
+                    held[name] += 1
+                    if not said[i + 1].strip().startswith(
+                            "0 bytes stack frame, 0 bytes spill stores, 0 "
+                            "bytes spill loads"):
+                        spills.append(line.split()[-1])
+    if held != {"lu_tile_kernel": 16, "qr_panel_warp_kernel": 11,
+                "qr_panel_block_kernel": 3, "qr_panel_gmem_kernel": 2} \
+            or spills:
+        raise AssertionError(f"instances {held} (want 16, 11, 3, 2), with "
+                             f"local memory: {spills}")
 
 
 def _tile_shapes(plan):
@@ -2069,32 +2085,61 @@ def qr_factor_checked(M: torch.Tensor, taus: torch.Tensor, bs: int,
     return len(panels)
 
 
+QR_STEP = {}    # {panel width: ms of one column step of H2 on one warp}
+
+
+def qr_chain_step(pb: int) -> float:
+    """Milliseconds of one dependent column step of qr_panel's warp regime
+    at width pb (tpt_qr_chain_probe: the pb-value all-reduce, the square
+    root and the reciprocal), measured once a run for each width."""
+    if pb not in QR_STEP:
+        QR_STEP[pb] = chain_step_ms(pb, entry="tpt_qr_chain_probe")
+        log(f"[15] one dependent H2 column step on one warp at pb={pb}: "
+            f"{QR_STEP[pb] * 1e6:.1f} ns (chain floor of a panel = pb "
+            f"times it)")
+    return QR_STEP[pb]
+
+
+def h2_regime(mm: int, pb: int) -> str:
+    """The regime in which qr_panel runs a panel of mm rows and pb columns
+    (tpt_qr_panel_regime, the launch rule itself)."""
+    g = _build.library().tpt_qr_panel_regime(mm, pb)
+    return {0: "warp", 1: "block", -1: "device memory"}.get(
+        g, f"cluster of {g}")
+
+
 def qr_panel_shape(M0: torch.Tensor, pb: int, label: str, phase: str,
-                   tally: bool) -> None:
+                   tally: bool, hold: bool = True) -> None:
     """Times qr_panel on the first panel of the fronts M0 (in place on a
-    copy, the same work every call), its plain version and torch.geqrf on
-    the same panel columns (LAPACK's rule, not the JAX package's: a
-    yardstick only)."""
+    copy, the same work every call) beside torch.geqrf on the same panel
+    columns (LAPACK's rule, not the JAX package's: a yardstick of speed
+    only), both by cuda_ms; with ``hold`` the kernel must not be the
+    slower.  With ``tally`` the shape goes to the kernels line, with the
+    plain version's time and the chain floor."""
     P, m, C = M0.shape
     M, taus = M0.clone(), torch.zeros((P, C), device=DEV)
     out = qr_panel(M, taus, 0, pb)
     ref = qr_panel_ref(M0.clone(), torch.zeros((P, C), device=DEV), 0, pb)
     err, rel = rel_err(out[0], ref[0], f"qr_panel {label} V")
     ms = cuda_ms(lambda: qr_panel(M, taus, 0, pb))
+    panel = M0[:, :, :pb].contiguous()
+    lms = cuda_ms(lambda: torch.geqrf(panel))
+    if hold:
+        yardstick("qr_panel", label, ms, lms)
     nbytes, flops = _panel_cost(P, m, pb)
+    head = (f"[{phase}] qr_panel {label} ({h2_regime(m, pb)}): max_abs_err "
+            f"{err:.3e} (rel {rel:.1e}), kernel {ms:.4f} ms, geqrf "
+            f"{lms:.4f} ms{'' if hold else ' (not held)'}")
     if not tally:
-        log(f"[{phase}] qr_panel {label}: max_abs_err {err:.3e} (rel "
-            f"{rel:.1e}), kernel {ms:.4f} ms, bound "
-            f"{bound_ms(nbytes, flops)[0]:.4f} ms")
+        log(f"{head}, bound {bound_ms(nbytes, flops)[0]:.4f} ms")
         return
     Mp, tp = M0.clone(), torch.zeros((P, C), device=DEV)
     pms = once_ms(lambda: qr_panel_ref(Mp, tp, 0, pb))
-    panel = M0[:, :, :pb].contiguous()
-    lms = once_ms(lambda: torch.geqrf(panel))
+    chain = pb * qr_chain_step(pb)
     b = record("qr_panel", err, ms, pms, lms, nbytes, flops)
-    log(f"[{phase}] qr_panel {label}: max_abs_err {err:.3e} (rel "
-        f"{rel:.1e}), kernel {ms:.4f} ms, plain {pms:.4f} ms, geqrf "
-        f"{lms:.4f} ms, bound {b:.4f} ms")
+    STATS["qr_panel"]["chain_ms"] += chain
+    log(f"{head}, plain {pms:.4f} ms, bound {b:.4f} ms, chain floor "
+        f"{chain:.4f} ms")
 
 
 def qr_apply_shape(pool, taus, slots, kelim: int, label: str, phase: str,
@@ -2159,9 +2204,21 @@ def qr_corner_fronts() -> None:
             and R[1, 0, 0] == -4.0 and (R[:, 1, 1] == -2.0).all()):
         raise AssertionError(f"qr_panel corner fronts: taus {t[:, :4]}, "
                              f"R diagonal {R[:, [0, 1], [0, 1]]}")
+    Z = rng.normal(size=(3, 12, 16)).astype(np.float32)
+    Z[:, :, 0] = 0.0
+    Z[:, 0, 0] = -0.0
+    Zd = torch.from_numpy(Z).to(DEV)
+    tz = torch.zeros((3, 16), device=DEV)
+    qr_factor_checked(Zd, tz, 8, 12, "a -0.0 diagonal")
+    r0 = Zd[:, 0, 0].cpu().numpy()
+    if not (np.signbit(r0).all() and (r0 == 0.0).all()
+            and (tz[:, 0] == 0.0).all().item()):
+        raise AssertionError(f"qr_panel: R[0, 0] {r0} of a zero column "
+                             f"whose x0 is -0.0, taus {tz[:, 0]}")
     log("[15] qr_panel corner fronts: tau 2 and R = -x0 where the part "
         "below the diagonal is zero (x0 = -3, 4, 2), tau 0 on the zero "
-        "column and past the real rows, bit for bit")
+        "column and past the real rows, and a zero column whose x0 is "
+        "-0.0 keeping R's -0.0, bit for bit")
 
 
 def phase_qr_kernels(plan, pools=None, tally: bool = False,
@@ -2280,7 +2337,7 @@ def profile_qr_factor(F: MultifrontalQR, share: float) -> str:
             f"included): " + _profile_summary(prof, t["wall"], QR_NAMED))
 
 
-QR_NAMED = {"H2": "qr_panel_kernel", "H3": "qr_apply_kernel"}
+QR_NAMED = {"H2": "qr_panel_", "H3": "qr_apply_kernel"}   # demangled names
 
 
 def phase_qr_leg(F: MultifrontalQR, A: CSCMatrix, t_plan: float) -> dict:
@@ -2413,7 +2470,7 @@ def phase_qr_routes(A_leg: CSCMatrix) -> dict:
     if not rel <= 1e-5:                  # an f32 QR refined twice
         raise AssertionError(f"qrsol dense: rel err {rel:.3e}")
     log(f"[16] qrsol dense route m={m} n={n} (m n = 2^22: TpuQR, panels "
-        f"of 16, the first of 4,096 rows in device memory): total "
+        f"of 16, each on a thread-block cluster): total "
         f"{t_all:.2f} s (of it TpuQR's densify and factor "
         f"{made[0].t['plan']:.2f} s), rel err against lstsq {rel:.2e}, "
         f"launches {counts}")
@@ -2458,10 +2515,13 @@ def phase_qr_first(F: MultifrontalQR) -> None:
 
 
 def phase_qr_dense_kernels() -> None:
-    """TpuQR's panels of 16 on the dense route's matrix (4,096 x 1,024,
-    the first panels too tall for shared memory, so in device memory),
-    each against its plain version, and its Q^T / Q applies; the first
-    panel and the applies to the kernels line."""
+    """TpuQR's panels of 16 on the dense route's matrix (4,096 x 1,024:
+    each panel on a cluster), each against its plain version, and its
+    Q^T / Q applies; the first panel and the applies to the kernels line.
+    Then one panel taller than the largest cluster holds (65,536 x 16,
+    diagonally dominant: the device-memory path), against its plain
+    version, its time beside geqrf's (printed, not held: no main path
+    has such a panel)."""
     captured = []
     inner = qr_tpu.blocked_qr
 
@@ -2480,12 +2540,19 @@ def phase_qr_dense_kernels() -> None:
                                16, n, f"TpuQR {m}x{n}")
     log(f"[15] qr_panel TpuQR {m}x{n}: {panels} panels of 16 agree with the "
         f"plain version")
-    qr_panel_shape(M, 16, f"TpuQR ({m}, {n}) P=1 k0=0 (device memory)",
-                   "15", True)
+    qr_panel_shape(M, 16, f"TpuQR ({m}, {n}) P=1 k0=0", "15", True)
     qr_apply_shape(T.VR[None].contiguous(), T.taus[None].contiguous(),
                    torch.zeros(1, dtype=torch.int64, device=DEV), n,
                    f"TpuQR ({m}, {n}) P=1", "15", True,
                    np.random.default_rng(20))
+    rows = QR_TALL
+    tall = torch.from_numpy(np.random.default_rng(21).normal(
+        size=(1, rows, 16)).astype(np.float32)).to(DEV)
+    tall += 4 * rows ** 0.5 * torch.eye(rows, 16, device=DEV)
+    qr_factor_checked(tall.clone(), torch.zeros((1, 16), device=DEV), 16, 16,
+                      f"tall ({rows}, 16)")
+    qr_panel_shape(tall, 16, f"tall ({rows}, 16) P=1 k0=0", "15", False,
+                   hold=False)
 
 
 def timed(label: str, fn, *args):
@@ -2578,6 +2645,14 @@ def main() -> None:
             if "15" in want:
                 timed("15, g=363 batches", phase_qr_kernels, F.plan,
                       (F.pools, F.taus), True, "g=363")
+                s = STATS["qr_panel"]
+                yardstick("qr_panel", f"summed over the kernels line's "
+                          f"{s['shapes']} shapes", s["ms"], s["library_ms"])
+                log(f"[15] qr_panel over the kernels line's {s['shapes']} "
+                    f"shapes: "
+                    f"kernel {s['ms']:.4f} ms, geqrf {s['library_ms']:.4f} "
+                    f"ms, bound {s['bound_ms']:.4f} ms, chain floor "
+                    f"{s['chain_ms']:.4f} ms")
             del F
             fresh_memory()
             route_counts = timed("16, routes", phase_qr_routes, A)

@@ -158,6 +158,113 @@ def test_corner_fronts_keep_the_jax_householder_rule():
     assert QR[0, 0, 0].item() == -3.0 and QR[0, 1, 1].item() == 2.0
 
 
+def _one_reduction_panel(M, taus, k0, pb):
+    """The column step of csrc/qr_panel.cu in torch ops, on the panel of
+    M in place: per column one set of raw sums s[k] = sum_{r > j} M[r, j]
+    M[r, k] over the panel, then every scalar from them (normx =
+    sqrt(x0^2 + s[j]); w[k] = M[j, k] + s[k] / safe, by the reciprocal of
+    safe as the kernel takes it; T's column j from w[:j], which is
+    (V^T V)[:j, j]).  Row j is read, never summed; rows above j are not
+    touched.  Returns (V, T) as qr_panel_ref does."""
+    P, m, _ = M.shape
+    X = M[:, k0:, k0:k0 + pb]
+    mm = m - k0
+    r = torch.arange(mm)
+    T = torch.zeros((P, pb, pb), dtype=M.dtype)
+    for j in range(pb):
+        x = torch.where(r > j, X[:, :, j], torch.zeros(()))
+        s = torch.bmm(x[:, None, :], X)[:, 0]             # (P, pb)
+        row = X[:, j, :].clone()
+        x0 = row[:, j]
+        normx = torch.sqrt(x0 * x0 + s[:, j])
+        alpha = torch.where(x0 >= 0, -normx, normx)
+        denom = x0 - alpha
+        safe = torch.where(denom == 0, torch.ones(()), denom)
+        tau = torch.where(normx == 0, torch.zeros(()), (alpha - x0) / (
+            torch.where(alpha == 0, torch.ones(()), alpha)))
+        rinv = 1.0 / safe
+        w = row + s * rinv[:, None]
+        T[:, :j, j] = -tau[:, None] * torch.bmm(T[:, :j, :j],
+                                                w[:, :j, None])[:, :, 0]
+        T[:, j, j] = tau
+        taus[:, k0 + j] = tau
+        v = x[:, j + 1:] * rinv[:, None]
+        X[:, j + 1:, j + 1:] -= (tau[:, None] * v)[:, :, None] * w[
+            :, None, j + 1:]
+        X[:, j, j + 1:] -= tau[:, None] * w[:, j + 1:]
+        X[:, j, j] = x0 - tau * w[:, j]
+        X[:, j + 1:, j] = v
+    cols = torch.arange(pb)
+    V = torch.where(r[:, None] > cols, X, torch.zeros(())) + (
+        r[:, None] == cols).to(M.dtype)
+    return V, T
+
+
+def _one_reduction_factor(M, bs, kelim):
+    """qr_factor_partial with _one_reduction_panel as its panel."""
+    TM = torch.from_numpy(M.copy())
+    taus = torch.zeros((M.shape[0], M.shape[2]))
+    n = M.shape[2]
+    for k0, pb in dense._panel_starts(kelim, bs):
+        V, T = _one_reduction_panel(TM, taus, k0, pb)
+        if k0 + pb < n:
+            rest = TM[:, k0:, k0 + pb:]
+            W = torch.bmm(V.transpose(1, 2), rest)
+            rest.baddbmm_(V, torch.bmm(T.transpose(1, 2), W), alpha=-1.0)
+    return TM.numpy(), taus.numpy()
+
+
+@pytest.mark.parametrize("P,m,C,pb", [(3, 40, 24, 8), (2, 16, 48, 8),
+                                      (1, 64, 32, 16), (4, 9, 12, 5),
+                                      (2, 24, 8, 8)])
+def test_one_reduction_matches_ref_and_jax(P, m, C, pb):
+    """The kernel's algebra (one set of sums a column) against the plain
+    version and JAX's qr_factor_partial, within 1e-5 relative."""
+    M = np.random.default_rng(m + C).normal(size=(P, m, C)).astype(
+        np.float32)
+    JM, JT = _jax_factor(M, pb, pb)
+    OM, Ot = torch.from_numpy(M.copy()), torch.zeros((P, C))
+    V, T = _one_reduction_panel(OM, Ot, 0, pb)
+    RM, Rt = torch.from_numpy(M.copy()), torch.zeros((P, C))
+    Vr, Tr = qr_panel_ref(RM, Rt, 0, pb)
+    for got, want in ((OM, RM), (Ot, Rt), (V, Vr), (T, Tr),
+                      (OM[:, :, :pb], torch.from_numpy(JM[:, :, :pb])),
+                      (Ot, torch.from_numpy(JT))):
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    assert np.array_equal(OM.numpy()[:, :, pb:], M[:, :, pb:])
+
+
+def test_one_reduction_keeps_the_corner_columns_exact():
+    """Where the part below the diagonal is zero every raw sum is exactly
+    0, so tau = 2 and R = -x0 bit for bit; a zero column gets tau 0."""
+    M = _corner_fronts()
+    JM, JT = _jax_factor(M, 8, 12)
+    OM, OT = _one_reduction_factor(M, 8, 12)
+    assert np.abs(OM - JM).max() <= 1e-5 * np.abs(JM).max()
+    assert np.abs(OT - JT).max() <= 1e-5
+    assert (OT[:, 0] == 2.0).all() and (OT[:, 1] == 2.0).all()
+    assert OM[0, 0, 0] == 3.0 and OM[1, 0, 0] == -4.0
+    assert (OM[:, 1, 1] == -2.0).all()
+    assert (OT[:, 3] == 0.0).all() and (OT[:, 10:12] == 0.0).all()
+
+
+def test_one_reduction_keeps_a_negative_zero_diagonal():
+    """A zero column whose x0 is -0.0: row j is read, not summed, so R
+    keeps the -0.0 (tau 0); the rest as the plain version has it."""
+    M = np.random.default_rng(11).normal(size=(3, 12, 16)).astype(
+        np.float32)
+    M[:, :, 0] = 0.0
+    M[:, 0, 0] = -0.0
+    M[1, 5, 0] = -0.0
+    OM, OT = _one_reduction_factor(M, 8, 12)
+    assert np.signbit(OM[:, 0, 0]).all() and (OM[:, 0, 0] == 0.0).all()
+    assert (OT[:, 0] == 0.0).all()
+    RM, Rt = torch.from_numpy(M.copy()), torch.zeros((3, 16))
+    dense.qr_factor_partial(RM, Rt, 8, 12)
+    assert np.abs(OM - RM.numpy()).max() <= 1e-5 * RM.abs().max().item()
+    assert np.abs(OT - Rt.numpy()).max() <= 1e-5
+
+
 def test_blocked_qr_matches_jax():
     A = np.random.default_rng(3).normal(size=(72, 32)).astype(np.float32)
     JV, Jt = jdense.blocked_qr(jnp.asarray(A), 16)
