@@ -17,8 +17,9 @@ Phases (any failure raises, so the exit code is nonzero):
      limit;
   2. build: nvcc builds tpusparse_torch/csrc/*.cu into build/ (first use);
      ptxas's registers and spills per kernel; no instance of the LU tile
-     kernel (16) or of the QR panel kernels (11 warp, 3 block, 2
-     device-memory instances) may use local memory;
+     kernel (16), of the QR panel kernels (11 warp, 3 block, 2
+     device-memory instances) or of the QR apply kernel (8) may use local
+     memory;
   3. kernels vs plain versions on the card, at every chol W and trsm
      (H, W) of the canonical plan, at its largest per-step batch, within
      1e-5 relative (W=128 is one tile, the (1, 128, 128) every panel of
@@ -136,15 +137,25 @@ share and the longest kernels.
      of 16 of TpuQR on the dense route's matrix (4,096 x 1,024: each on a
      thread-block cluster), and on one panel taller than the largest
      cluster (65,536 x 16: the device-memory path); qr_apply (H3) both
-     ways at each bucket's largest io batch of both factored plans and on
-     TpuQR's factor; times of kernel, plain version and the nearest
-     library call (torch.geqrf on the same panel columns, by cuda_ms;
-     torch.ormqr on the same reflectors, recorded, not asserted), and
-     H2's chain floor (tpt_qr_chain_probe: one column step on one warp
-     times pb); the g=363 shapes and TpuQR's go to the kernels line.
-     Yardstick: qr_panel no slower than geqrf at every shape of the
+     ways at each bucket's largest io batch of both factored plans, on
+     TpuQR's factor and on the factored 65,536 x 16 panel (alone, on a
+     cluster, and as 133 copies, one CTA each, whose z of 256 KiB is
+     updated in device memory); tau 0 columns holding 1e20 leave z bit
+     for bit (one CTA, one warp, a cluster); times of kernel, plain
+     version and the nearest library call (torch.geqrf on the same panel
+     columns, by cuda_ms; torch.ormqr on the same reflectors, by cuda_ms
+     where one call takes under 20 ms, else one timed call), and the
+     chain floors (tpt_qr_chain_probe: one H2 column step on one warp
+     times pb; tpt_qr_apply_chain_probe: one H3 panel step as the launch
+     runs it, times the panels up to a front's last live reflector); the
+     g=363 shapes and TpuQR's go to the kernels line.
+     Yardsticks: qr_panel no slower than geqrf at every shape of the
      kernels line and of the QR leg, and summed over the kernels line's
      shapes (the 65,536-row panel is printed beside geqrf, not held);
+     qr_apply no slower than ormqr at every shape of the kernels line,
+     both ways, and summed over them (the QR leg's shapes print the
+     kernel's time and bound, with no ormqr call; the 65,536-row factor
+     is printed beside ormqr, not held);
  16. the QR solves: BENCH_r05's QR leg (bench.py::sparse_ls_problem(
      16384, 8192)) through MultifrontalQR, plan fields equal to the row's,
      the launch counters reset just before the factor: one qr_panel per
@@ -171,8 +182,8 @@ SELL slabs, the LU tiles at tol 0 and 0.001, the trsm kernel at the
 LU's shapes and the QR kernels at the QR leg's shapes are checked but
 left out; an SpMV bound counts the bytes of the real entries, not the
 padding, a qr_apply bound the reflectors with tau != 0; chain_ms,
-beside the bound, is the chain floor of a tile kernel or of qr_panel,
-null for the others);
+beside the bound, is the chain floor of a tile kernel, of qr_panel or
+of qr_apply, null for the others);
 the last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -559,7 +570,8 @@ def phase_build() -> None:
         said = f.read().replace("ptxas info    : ", "").splitlines()
     # instances that may use no local memory, and how many there are
     held = {"lu_tile_kernel": 0, "qr_panel_warp_kernel": 0,
-            "qr_panel_block_kernel": 0, "qr_panel_gmem_kernel": 0}
+            "qr_panel_block_kernel": 0, "qr_panel_gmem_kernel": 0,
+            "qr_apply_kernel": 0}
     spills = []
     for i, line in enumerate(said[:-2]):
         if line.startswith("Function properties for"):
@@ -573,10 +585,10 @@ def phase_build() -> None:
                             "bytes spill loads"):
                         spills.append(line.split()[-1])
     if held != {"lu_tile_kernel": 16, "qr_panel_warp_kernel": 11,
-                "qr_panel_block_kernel": 3, "qr_panel_gmem_kernel": 2} \
-            or spills:
-        raise AssertionError(f"instances {held} (want 16, 11, 3, 2), with "
-                             f"local memory: {spills}")
+                "qr_panel_block_kernel": 3, "qr_panel_gmem_kernel": 2,
+                "qr_apply_kernel": 8} or spills:
+        raise AssertionError(f"instances {held} (want 16, 11, 3, 2, 8), "
+                             f"with local memory: {spills}")
 
 
 def _tile_shapes(plan):
@@ -2142,12 +2154,45 @@ def qr_panel_shape(M0: torch.Tensor, pb: int, label: str, phase: str,
         f"{chain:.4f} ms")
 
 
+QA_STEP = {}    # {H3 regime: ms of one dependent panel step as launched}
+
+
+def h3_regime(P: int, Rh: int) -> tuple:
+    """(G, nt): qr_apply runs P fronts of Rh rows on G CTAs a front (a
+    cluster when G > 1) of nt threads (tpt_qr_apply_regime, the launch
+    rule itself)."""
+    return divmod(_build.library().tpt_qr_apply_regime(P, Rh), 1024)
+
+
+def qr_apply_step(G: int, nt: int) -> float:
+    """Milliseconds of one dependent panel step of qr_apply on one front
+    as the launch runs it (tpt_qr_apply_chain_probe: the 36-value
+    reduction with its barrier or mbarrier wait, then T and u), measured
+    once a run for each regime."""
+    if (G, nt) not in QA_STEP:
+        QA_STEP[G, nt] = chain_step_ms(G * 1024 + nt, steps=1 << 14,
+                                       entry="tpt_qr_apply_chain_probe")
+        log(f"[15] one dependent H3 panel step on {G} CTA(s) of {nt} "
+            f"threads: {QA_STEP[G, nt] * 1e6:.1f} ns")
+    return QA_STEP[G, nt]
+
+
 def qr_apply_shape(pool, taus, slots, kelim: int, label: str, phase: str,
-                   tally: bool, rng) -> None:
+                   tally: bool, rng, library: bool = None) -> None:
     """qr_apply on the fronts ``slots`` of a factored pool, both ways,
-    against its plain version; timed beside torch.ormqr on the same
-    reflectors and taus.  The bound counts the reflectors this data has
-    (tau != 0): the kernel skips the others."""
+    against its plain version.  With ``library`` (by default as
+    ``tally``) it is timed beside torch.ormqr on the same reflectors and
+    taus: by cuda_ms where one ormqr call takes under 20 ms (the single
+    fronts, about 1 ms), else by once_ms (the many-front batches, where
+    one batched call takes 0.1-0.9 s and the kernel is hundreds of times
+    ahead).  With ``tally`` the shape goes to the kernels line, with the
+    plain version's time and the chain floor, and the kernel must not be
+    slower than ormqr.  The bound counts the reflectors this data has
+    (tau != 0): the kernel masks the others out of every sum and visits
+    no panel after a front's last live one.  The chain floor is the
+    panels of 8 up to that one, in the front that has the most, times one
+    panel step of the launch's regime."""
+    library = tally if library is None else library
     S, Rh, C = pool.shape
     z0 = torch.from_numpy(rng.normal(size=(S, Rh)).astype(np.float32)).to(
         DEV)
@@ -2156,6 +2201,10 @@ def qr_apply_shape(pool, taus, slots, kelim: int, label: str, phase: str,
     P = len(slots)
     nbytes = 4 * (int(np.sum(Rh - k - 1)) + P * kelim + 2 * P * Rh)
     flops = 4 * int(np.sum(Rh - k))
+    last = np.where(live.any(1), kelim - np.argmax(live[:, ::-1], 1), 0)
+    G, nt = h3_regime(P, Rh)
+    chain = -(-int(last.max()) // 8) * qr_apply_step(G, nt)
+    where = f"a cluster of {G} CTAs" if G > 1 else "one CTA a front"
     V = pool[slots][:, :, :kelim].contiguous()
     t = taus[slots][:, :kelim].contiguous()
     zc = z0[slots][:, :, None].contiguous()
@@ -2167,19 +2216,74 @@ def qr_apply_shape(pool, taus, slots, kelim: int, label: str, phase: str,
         err, rel = rel_err(z, zr, f"qr_apply {way} {label}")
         ms = cuda_ms(lambda: qr_apply(pool, taus, slots, z, kelim,
                                       transpose))
-        head = (f"[{phase}] qr_apply {way} {label} ({int(live.sum())} live "
-                f"reflectors): max_abs_err {err:.3e} (rel {rel:.1e}), "
-                f"kernel {ms:.4f} ms")
-        if not tally:
-            log(f"{head}, bound {bound_ms(nbytes, flops)[0]:.4f} ms")
+        head = (f"[{phase}] qr_apply {way} {label} ({where} of {nt} "
+                f"threads; {int(live.sum())} live reflectors): max_abs_err "
+                f"{err:.3e} (rel {rel:.1e}), kernel {ms:.4f} ms")
+        if not library:
+            log(f"{head}, bound {bound_ms(nbytes, flops)[0]:.4f} ms, chain "
+                f"floor {chain:.4f} ms")
             continue
+
+        def ormqr():
+            return torch.ormqr(V, t, zc, left=True, transpose=transpose)
+        lms, how = once_ms(ormqr), "once_ms"
+        if lms < 20.0:
+            lms, how = cuda_ms(ormqr), "cuda_ms"
+        head += f", ormqr {lms:.4f} ms ({how})"
+        if not tally:
+            log(f"{head} (not held), bound {bound_ms(nbytes, flops)[0]:.4f} "
+                f"ms, chain floor {chain:.4f} ms")
+            continue
+        yardstick("qr_apply", f"{way} {label}", ms, lms)
         pms = once_ms(lambda: qr_apply_ref(pool, taus, slots, zr, kelim,
                                            transpose))
-        lms = once_ms(lambda: torch.ormqr(V, t, zc, left=True,
-                                          transpose=transpose))
         b = record("qr_apply", err, ms, pms, lms, nbytes, flops)
-        log(f"{head}, plain {pms:.4f} ms, ormqr {lms:.4f} ms, bound "
-            f"{b:.4f} ms")
+        STATS["qr_apply"]["chain_ms"] += chain
+        log(f"{head}, plain {pms:.4f} ms, bound {b:.4f} ms, chain floor "
+            f"{chain:.4f} ms")
+
+
+def qr_apply_tau0() -> None:
+    """Reflectors with tau = 0 are the identity: on factored fronts (one
+    CTA of 200 rows, a one-warp front of 24, a cluster over 1,100 rows)
+    columns 3 and 11 get tau 0 and 1e20 below the diagonal (their squares
+    overflow f32, so a multiply would not do); qr_apply both ways within
+    TOL of its plain version and bit for bit as on the same factor with
+    those parts zeroed; a front whose taus are all 0 leaves z bit for
+    bit."""
+    rng = np.random.default_rng(22)
+    for P, m, n in ((3, 200, 24), (4, 24, 16), (1, 1100, 40)):
+        M = torch.from_numpy(rng.normal(size=(P, m, n)).astype(
+            np.float32)).to(DEV)
+        M += 4 * m ** 0.5 * torch.eye(m, n, device=DEV)
+        taus = torch.zeros((P, n), device=DEV)
+        kelim = min(m, n)
+        dense.qr_factor_partial(M, taus, 8, kelim)
+        taus[:, [3, 11]] = 0.0
+        big, zero = M.clone(), M.clone()
+        for col in (3, 11):
+            big[:, col + 1:, col] = 1e20
+            zero[:, col + 1:, col] = 0.0
+        slots = torch.arange(P, device=DEV)
+        z0 = torch.from_numpy(rng.normal(size=(P, m)).astype(
+            np.float32)).to(DEV)
+        for transpose in (True, False):
+            zb, zz, zr = z0.clone(), z0.clone(), z0.clone()
+            qr_apply(big, taus, slots, zb, kelim, transpose)
+            qr_apply(zero, taus, slots, zz, kelim, transpose)
+            qr_apply_ref(big, taus, slots, zr, kelim, transpose)
+            rel_err(zb, zr, f"qr_apply tau 0 ({P}, {m}, {n}) {transpose}")
+            if not torch.equal(zb, zz):
+                raise AssertionError(f"qr_apply ({P}, {m}, {n}): a tau 0 "
+                                     f"column's stored values moved z")
+        z = z0.clone()
+        qr_apply(big, torch.zeros_like(taus), slots, z, kelim, True)
+        if not torch.equal(z, z0):
+            raise AssertionError(f"qr_apply ({P}, {m}, {n}): all taus 0 "
+                                 f"changed z")
+    log("[15] qr_apply tau 0: columns of 1e20 under tau 0 leave z bit for "
+        "bit as zeros there do, within TOL of the plain version, on one CTA, "
+        "one warp and a cluster; all taus 0 leave z bit for bit")
 
 
 def qr_corner_fronts() -> None:
@@ -2508,6 +2612,7 @@ def phase_qr_first(F: MultifrontalQR) -> None:
     """Phase 15 before the QR solves: the corner fronts, the QR leg's
     plan (its factor first, off the launch counts) and TpuQR's panels."""
     qr_corner_fronts()
+    qr_apply_tau0()
     if not F.factor():
         raise AssertionError("QR leg factor failed")
     phase_qr_kernels(F.plan, (F.pools, F.taus), False, "QR leg")
@@ -2549,10 +2654,21 @@ def phase_qr_dense_kernels() -> None:
     tall = torch.from_numpy(np.random.default_rng(21).normal(
         size=(1, rows, 16)).astype(np.float32)).to(DEV)
     tall += 4 * rows ** 0.5 * torch.eye(rows, 16, device=DEV)
-    qr_factor_checked(tall.clone(), torch.zeros((1, 16), device=DEV), 16, 16,
-                      f"tall ({rows}, 16)")
+    tf, tt = tall.clone(), torch.zeros((1, 16), device=DEV)
+    qr_factor_checked(tf, tt, 16, 16, f"tall ({rows}, 16)")
     qr_panel_shape(tall, 16, f"tall ({rows}, 16) P=1 k0=0", "15", False,
                    hold=False)
+    rng = np.random.default_rng(23)
+    qr_apply_shape(tf, tt, torch.zeros(1, dtype=torch.int64, device=DEV), 16,
+                   f"tall ({rows}, 16) P=1", "15", False, rng, library=True)
+    # one CTA a front once the fronts fill the card: z's 256 KiB then
+    # exceed a block's shared memory and are updated in device memory
+    P = torch.cuda.get_device_properties(0).multi_processor_count + 1
+    qr_apply_shape(tf.expand(P, -1, -1).contiguous(),
+                   tt.expand(P, -1).contiguous(),
+                   torch.arange(P, device=DEV), 16,
+                   f"tall ({rows}, 16) P={P}, z in device memory", "15",
+                   False, rng, library=True)
 
 
 def timed(label: str, fn, *args):
@@ -2653,6 +2769,13 @@ def main() -> None:
                     f"kernel {s['ms']:.4f} ms, geqrf {s['library_ms']:.4f} "
                     f"ms, bound {s['bound_ms']:.4f} ms, chain floor "
                     f"{s['chain_ms']:.4f} ms")
+                s = STATS["qr_apply"]
+                yardstick("qr_apply", f"summed over the kernels line's "
+                          f"{s['shapes']} shapes", s["ms"], s["library_ms"])
+                log(f"[15] qr_apply over the kernels line's {s['shapes']} "
+                    f"shapes: kernel {s['ms']:.4f} ms, ormqr "
+                    f"{s['library_ms']:.4f} ms, bound {s['bound_ms']:.4f} "
+                    f"ms, chain floor {s['chain_ms']:.4f} ms")
             del F
             fresh_memory()
             route_counts = timed("16, routes", phase_qr_routes, A)

@@ -12,7 +12,10 @@ SparseQR and qrsol against the JAX package, on the CPU.
   narrower than 8;
 - the reflector application (H3, ``qr_apply_ref``) against JAX's
   ``qr_qt_mul_batched`` / ``qr_q_mul_batched`` and the dense
-  ``qr_apply_qt`` / ``qr_apply_q``, within 2e-6 * max|z|;
+  ``qr_apply_qt`` / ``qr_apply_q``, within 2e-6 * max|z|; the CUDA
+  kernel's compact-WY panel algebra written in torch ops here
+  (``_panel_apply``) against both within 1e-5 relative, with a tau 0
+  reflector over 1e20 entries kept the identity bit for bit;
 - TpuQR and SparseQR: twins of tests/test_device_lu_qr.py:66 and :79 and
   of every test of tests/test_sparse_qr.py (same inputs, same limits);
 - qrsol against the JAX package's qrsol and the host qrsol (the JAX
@@ -314,6 +317,108 @@ def test_apply_ref_touches_only_its_slots():
     ref = dense.qr_qt_mul_batched(pool[slots], taus[slots], z0[slots], 12)
     assert torch.allclose(z[slots], ref)
     qr_apply_ref(pool, taus, slots, z, 12, False)       # Q Q^T = I
+    assert torch.allclose(z, z0, atol=1e-5)
+
+
+def _panel_apply(pool, taus, slots, z, kelim, transpose):
+    """The panel step of csrc/qr_apply.cu in torch ops, in place on
+    z[slots]: per panel of 8 reflectors (the last may be narrower; Q^T
+    takes the panels forward, Q in reverse), V is the panel's columns
+    masked to the unit lower trapezoid, with the column of a reflector
+    whose tau is 0 set to 0 by a select (its stored values never enter a
+    sum); w = V^T z and G = V^T V are summed once; T is formed from G's
+    strict upper part and the taus as JAX's _form_t_batched forms it
+    (T[j, j] = tau_j, T[:j, j] = -tau_j T[:j, :j] G[:j, j]); u = T^T w
+    (Q^T) or T w (Q); z -= V u.  Rows above the panel are not touched."""
+    F, t, zb = pool[slots], taus[slots], z[slots]
+    P, Rh, _ = F.shape
+    r = torch.arange(Rh)[:, None]
+    panels = dense._panel_starts(kelim, 8)
+    for k0, pb in (panels if transpose else panels[::-1]):
+        cols = k0 + torch.arange(8)
+        tau = torch.zeros((P, 8))
+        tau[:, :pb] = t[:, k0:k0 + pb]
+        chunk = torch.zeros((P, Rh, 8))
+        chunk[:, :, :pb] = F[:, :, k0:k0 + pb]
+        V = torch.where(r > cols, chunk, (r == cols).to(F.dtype))
+        V = torch.where(tau[:, None, :] != 0, V, torch.zeros(()))
+        w = torch.einsum("pri,pr->pi", V, zb)
+        G = torch.einsum("pri,prj->pij", V, V)
+        T = torch.zeros((P, 8, 8))
+        for j in range(8):
+            T[:, :j, j] = -tau[:, j, None] * torch.einsum(
+                "pim,pm->pi", T[:, :j, :j], G[:, :j, j])
+            T[:, j, j] = tau[:, j]
+        u = torch.einsum("pji,pj->pi" if transpose else "pij,pj->pi", T, w)
+        zb = zb - torch.einsum("pri,pi->pr", V, u)
+    z[slots] = zb
+
+
+@pytest.mark.parametrize("P,m,n,kelim", [(3, 40, 24, 24), (2, 16, 48, 16),
+                                         (2, 48, 32, 20), (3, 12, 12, 12)])
+def test_panel_apply_matches_ref_and_jax(P, m, n, kelim):
+    """The kernel's panel algebra against the plain version (one reflector
+    at a time) and JAX's compact-WY qr_qt_mul_batched / qr_q_mul_batched,
+    within 1e-5 relative, both ways (kelim = 20: a last panel of 4; (16,
+    48): a wide front)."""
+    rng = np.random.default_rng(m + n)
+    JM, JT = _jax_factor(rng.normal(size=(P, m, n)).astype(np.float32), 8,
+                         kelim)
+    z0 = rng.normal(size=(P, m)).astype(np.float32)
+    pool, taus = torch.from_numpy(JM), torch.from_numpy(JT)
+    slots = torch.arange(P)
+    for transpose, jax_fn in ((True, jdense.qr_qt_mul_batched),
+                              (False, jdense.qr_q_mul_batched)):
+        got, ref = torch.from_numpy(z0.copy()), torch.from_numpy(z0.copy())
+        _panel_apply(pool, taus, slots, got, kelim, transpose)
+        qr_apply_ref(pool, taus, slots, ref, kelim, transpose)
+        jax_z = torch.from_numpy(np.array(jax_fn(
+            jnp.asarray(JM), jnp.asarray(JT), jnp.asarray(z0), 8, kelim)))
+        for want in (ref, jax_z):
+            assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_panel_apply_keeps_a_tau0_reflector_the_identity():
+    """Columns 3 and 11 get tau 0 and 1e20 below the diagonal (their
+    squares overflow f32): z comes out bit for bit as on the same factor
+    with zeros there, within 1e-5 of the plain version; a front whose
+    taus are all 0 leaves z exactly as it was."""
+    rng = np.random.default_rng(9)
+    JM, JT = _jax_factor(rng.normal(size=(3, 40, 24)).astype(np.float32), 8,
+                         24)
+    taus = torch.from_numpy(JT)
+    taus[:, [3, 11]] = 0.0
+    big, zero = torch.from_numpy(JM.copy()), torch.from_numpy(JM.copy())
+    for col in (3, 11):
+        big[:, col + 1:, col] = 1e20
+        zero[:, col + 1:, col] = 0.0
+    z0 = torch.from_numpy(rng.normal(size=(3, 40)).astype(np.float32))
+    slots = torch.arange(3)
+    for transpose in (True, False):
+        zb, zz, zr = z0.clone(), z0.clone(), z0.clone()
+        _panel_apply(big, taus, slots, zb, 24, transpose)
+        _panel_apply(zero, taus, slots, zz, 24, transpose)
+        qr_apply_ref(big, taus, slots, zr, 24, transpose)
+        assert torch.equal(zb, zz) and torch.isfinite(zb).all()
+        assert (zb - zr).abs().max() <= 1e-5 * zr.abs().max()
+    z = z0.clone()
+    _panel_apply(big, torch.zeros_like(taus), slots, z, 24, True)
+    assert torch.equal(z, z0)
+
+
+def test_panel_apply_touches_only_its_slots():
+    rng = np.random.default_rng(5)
+    JM, JT = _jax_factor(rng.normal(size=(5, 20, 12)).astype(np.float32),
+                         8, 12)
+    pool, taus = torch.from_numpy(JM), torch.from_numpy(JT)
+    z0 = torch.from_numpy(rng.normal(size=(5, 20)).astype(np.float32))
+    slots = torch.tensor([3, 0])
+    z, zr = z0.clone(), z0.clone()
+    _panel_apply(pool, taus, slots, z, 12, True)
+    qr_apply_ref(pool, taus, slots, zr, 12, True)
+    assert torch.equal(z[[1, 2, 4]], z0[[1, 2, 4]])
+    assert (z - zr).abs().max() <= 1e-5 * zr.abs().max()
+    _panel_apply(pool, taus, slots, z, 12, False)       # Q Q^T = I
     assert torch.allclose(z, z0, atol=1e-5)
 
 

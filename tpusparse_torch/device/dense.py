@@ -16,7 +16,7 @@ panel kernel (``kernels.qr_panel``, H2), which keeps the JAX package's
 Householder rule (not geqrf's: see that module), and the rest of the
 front is updated as rest -= V (T^T (V^T rest)) in three batched
 products.  Reflectors are applied to vectors by ``kernels.qr_apply``
-(H3), one reflector at a time.  Only the narrowed (``_partial``) form is
+(H3), in compact-WY panels of 8.  Only the narrowed (``_partial``) form is
 ported: the JAX package's scan forms (``qr_factor_scan``,
 ``qr_qt_mul_scan``, ``qr_q_mul_scan``) bound the size of its compiled
 programs and give the same outputs up to reassociation.

@@ -54,6 +54,8 @@ _ENTRY_POINTS = {
     "tpt_qr_panel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "tpt_qr_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "tpt_qr_chain_probe": [_P, _I, _I, _P],
+    "tpt_qr_apply_chain_probe": [_P, _I, _I, _P],
+    "tpt_qr_apply_regime": [_I, _I],
     "tpt_qr_panel_regime": [_I, _I],
 }
 
