@@ -575,6 +575,172 @@ def test_solve_runs_without_the_relay_slot_cap(rng, monkeypatch):
     assert resid(d, F.solve(b), b) < 1e-12
 
 
+# ---------------------------------------------------- the packed solve sweep
+_BMM = torch.bmm
+
+
+def _slotwise_bmm(a, b):
+    """``torch.bmm`` one slot at a time.  Torch's CPU ``bmm`` computes a
+    batch of one through ``mm`` (a matrix-vector product at one column)
+    and a larger batch another way once a slot passes 400 multiply-adds,
+    so a slot's last bit can depend on its batch's size (as a rank's
+    slice of one unit does in the sharded solve); here it cannot."""
+    if not len(a):
+        return _BMM(a, b)
+    return torch.stack([torch.mm(x, y) for x, y in zip(a, b)])
+
+
+def _full_capacity_sweep(F, B):
+    """x of one f32 sweep over every key of ``_solve_xs`` at every step at
+    full capacity, padded slots included, row n zeroed after each step
+    (the sweep as it ran before its pairs were packed)."""
+    plan, c = F.plan, tss._Consts("cpu")
+    n = plan.n
+    x0 = np.zeros((n + 1, B.shape[1]), np.float32)
+    x0[:n] = B[plan.perm]
+    xpad = torch.from_numpy(x0)
+
+    def sweep(xs, backward):
+        keys = sorted(xs)
+        ck = [k for k in keys if k[0] == "chol"]
+        tk = [k for k in keys if k[0] == "trsm"]
+        steps = next(iter(xs[keys[0]].values())).shape[0]
+        for step in (range(steps - 1, -1, -1) if backward
+                     else range(steps)):
+            at = {k: {nm: v[step] for nm, v in xs[k].items()} for k in keys}
+            if not backward:
+                for k in ck:
+                    tss._diag_solve(F.pools, k, at[k], xpad, c, False)
+            tss._od_solve(F.pools, [(k, at[k]) for k in tk], xpad, c,
+                          backward)
+            if backward:
+                for k in ck:
+                    tss._diag_solve(F.pools, k, at[k], xpad, c, True)
+            xpad[n] = 0.0
+
+    full = tss._Packed([xs for xs in tsp._solve_xs(plan) if xs]).upload(
+        "cpu")
+    for xs in full:
+        sweep(xs, False)
+    for xs in reversed(full):
+        sweep(xs, True)
+    X = np.zeros((n, B.shape[1]))
+    X[plan.perm] = xpad[:n].numpy()
+    return X
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("name", FACTOR_CASES)
+def test_packed_sweep_is_bit_for_bit_the_full_capacity_one(
+        rng, monkeypatch, name, k):
+    """The f32 sweep over the packed pairs (``_solve_f32_many``) returns
+    exactly the x of the full-capacity loop on k right-hand sides: a
+    padded slot only writes row n or adds zeros to it.  Both run with
+    ``_slotwise_bmm``, so that a batch cut to its fill computes each of
+    its slots as the full batch does."""
+    d, A, kw = _setup(name, rng, monkeypatch)
+    F = tss.SuperscanCholesky(_port(A), device="cpu", **kw)
+    assert F.factor()
+    B = rng.normal(size=(A.n, k))
+    monkeypatch.setattr(torch, "bmm", _slotwise_bmm)
+    assert np.array_equal(F._solve_f32_many(B), _full_capacity_sweep(F, B))
+
+
+def _packed_by_slot(xs_list, n):
+    """The packed solve schedule of ``_solve_xs``'s segments, each slot's
+    reality judged in Python: per step, {key: {name: rows up to the last
+    real slot}} of the pairs that have one."""
+    out = []
+    for xs in xs_list:
+        keys = sorted(xs)
+        for step in range(_steps([xs])):
+            got = {}
+            for k in keys:
+                d = xs[k]
+                fill = 0
+                for u in range(d["cols"].shape[1]):
+                    real = any(int(v) < n for v in d["cols"][step, u])
+                    if k[0] == "trsm":
+                        real |= any(int(v) < n for v in d["tgt"][step, u])
+                    if real:
+                        fill = u + 1
+                if fill:
+                    got[k] = {nm: v[step, :fill] for nm, v in d.items()}
+            if got:
+                out.append(got)
+    return out
+
+
+@pytest.mark.parametrize("name", ["spd90_o1", "band", "seg_dp",
+                                  "agg_mixed"])
+def test_packed_solve_schedule_keeps_the_real_pairs(rng, monkeypatch, name):
+    """The solve schedule on the device holds exactly the pairs with a
+    real slot, each cut to its last real slot, keys in sorted order, in
+    int64 in one buffer of just their entries; the full-capacity
+    schedule holds more."""
+    d, A, kw = _setup(name, rng, monkeypatch)
+    F = tss.SuperscanCholesky(_port(A), device="cpu", **kw)
+    full = [xs for xs in tsp._solve_xs(F.plan) if xs]
+    want = _packed_by_slot(full, F.plan.n)
+    got = F._sched()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert list(g) == list(w) == sorted(w)
+        for k in w:
+            assert g[k].keys() == w[k].keys()
+            for nm, a in w[k].items():
+                assert g[k][nm].dtype == torch.int64
+                assert np.array_equal(g[k][nm].numpy(), a), (k, nm)
+    entries = sum(a.size for w in want for dd in w.values()
+                  for a in dd.values())
+    buf = next(iter(next(iter(got[0].values())).values()))
+    assert buf.untyped_storage().nbytes() == 8 * entries
+    assert entries < sum(a.size for xs in full for dd in xs.values()
+                         for a in dd.values())
+
+
+def test_packed_solve_schedule_is_smaller_on_the_canonical_grid():
+    """At g=24 the packed solve schedule keeps under half the pairs and
+    under a quarter of the full-capacity schedule's entries (595 of
+    1,528 pairs, 400,855 of 2,085,716 entries)."""
+    p = tsp.plan_superscan(_port(_grid3d(24)), order=1)
+    full = [xs for xs in tsp._solve_xs(p) if xs]
+    steps = [st for xs in full for st in tss._solve_steps(xs, p.n)]
+    pairs = sum(map(len, steps))
+    entries = sum(a.size for st in steps for dd in st.values()
+                  for a in dd.values())
+    assert 0 < pairs < 0.5 * sum(len(xs) * _steps([xs]) for xs in full)
+    assert 0 < entries < 0.25 * sum(a.size for xs in full
+                                   for dd in xs.values()
+                                   for a in dd.values())
+
+
+def test_fill_reaches_the_last_real_slot():
+    """A hand-made schedule whose real slots do not form a prefix: a
+    pair's fill reaches its last real slot, padded slots before it kept;
+    a trsm slot real by ``tgt`` alone counts; pairs and steps with no
+    real slot go."""
+    n = 10
+    cc = np.full((4, 4, 2), n, np.int32)
+    cc[0, 0], cc[0, 2] = [0, 1], [2, n]    # slot 1 padded between
+    cc[2, 3] = [4, 5]                      # only the last slot real
+    tc = np.full((4, 3, 2), n, np.int32)
+    tt = np.full((4, 3, 2), n, np.int32)
+    tt[1, 1] = [n, 7]                      # real by its target alone
+    xs = {("chol", 8, 2): {"dbase": np.arange(16, dtype=np.int32)
+                           .reshape(4, 4), "cols": cc},
+          ("trsm", 8, 2, 2): {"rows": np.arange(24, dtype=np.int32)
+                              .reshape(4, 3, 2), "cols": tc, "tgt": tt}}
+    got = tss._solve_steps(xs, n)
+    assert [{k: next(iter(d.values())).shape[0] for k, d in st.items()}
+            for st in got] == [{("chol", 8, 2): 3}, {("trsm", 8, 2, 2): 2},
+                               {("chol", 8, 2): 4}]
+    assert np.array_equal(got[0][("chol", 8, 2)]["cols"], cc[0, :3])
+    assert np.array_equal(got[1][("trsm", 8, 2, 2)]["rows"],
+                          xs[("trsm", 8, 2, 2)]["rows"][1, :2])
+    assert np.array_equal(got[2][("chol", 8, 2)]["dbase"], [8, 9, 10, 11])
+
+
 # ------------------------------------------ solve_many, solve_host, updown
 def test_metrics(rng):
     """Twin of test_superscan.py::test_metrics, equal to JAX's metrics

@@ -203,6 +203,55 @@ def test_sweeps_count_the_f32_solves(factored, iters):
             == [s.index for s in sweeps]
 
 
+def test_pairs_count_the_packed_schedule(factored):
+    """``pairs`` on every forward and backward span of a refined solve is
+    the packed solve schedule's pair count: the (step, key) pairs of
+    ``_solve_xs`` that hold a real slot, fewer than it has."""
+    F = factored
+    with recording() as rec:
+        F.solve(np.linspace(-1, 1, F.A.n))
+    full = [xs for xs in superscan._solve_xs(F.plan) if xs]
+    pairs = sum(len(st) for xs in full
+                for st in superscan._solve_steps(xs, F.plan.n))
+    assert pairs == sum(map(len, F._sched()))
+    assert 0 < pairs < sum(len(xs) * next(iter(next(iter(
+        xs.values())).values())).shape[0] for xs in full)
+    root = next(s for s in rec if s.parent == -1)
+    for name in ("superscan.solve.forward", "superscan.solve.backward"):
+        got = [s.counts for s in rec if s.name == name]
+        assert got == [{"pairs": pairs}] * root.counts["sweeps"]
+
+
+class _CountedLen(dict):
+    """A step of the solve schedule that counts the calls of ``len``."""
+    calls = 0
+
+    def __len__(self):
+        _CountedLen.calls += 1
+        return super().__len__()
+
+
+def test_pairs_are_not_computed_when_nothing_records(factored,
+                                                     monkeypatch):
+    """Off, the sweep neither sums its pairs nor counts them; recording,
+    it sums each step's pairs once a direction."""
+    F = factored
+    sched = [_CountedLen(xs) for xs in F._sched()]
+    monkeypatch.setattr(F, "_solve_sched", sched)
+    monkeypatch.setattr(_CountedLen, "calls", 0)
+    b = np.ones((F.A.n, 1))
+    before = [s.index for s in profiling.spans()]
+    F._solve_f32_many(b)
+    assert _CountedLen.calls == 0
+    assert [s.index for s in profiling.spans()] == before
+    with recording() as rec:
+        F._solve_f32_many(b)
+    assert _CountedLen.calls == 2 * len(sched)
+    assert [s.counts for s in rec if s.name.startswith(
+        "superscan.solve.")] == [{}, {"pairs": sum(map(len, sched))},
+                                 {"pairs": sum(map(len, sched))}]
+
+
 def test_apply_records_one_span(factored):
     plan = spmv_plan(factored.A, "auto", device="cpu")
     with recording() as rec:

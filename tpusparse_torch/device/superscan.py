@@ -29,10 +29,14 @@ Left out of the JAX body: the per-step gather chunking
 cache (``_pools_sig``, compilepool.py, :1812-1846) and the ``shard_fn``
 hooks.
 
-Solve: the same segments with diagonal solves and od GEMMs, forward
-then backward, in f32 for all k right-hand sides at once as an
-(n + 1, k) tensor (JAX vmaps the segment solve over them), then host f64
-iterative refinement (``refine``; ``refine_many`` for ``solve_many``).
+Solve: the same steps with diagonal solves and od GEMMs, forward then
+backward, in f32 for all k right-hand sides at once as an (n + 1, k)
+tensor (JAX vmaps the segment solve over them), then host f64 iterative
+refinement (``refine``; ``refine_many`` for ``solve_many``).  JAX runs
+every key of every step at full capacity; here the schedule keeps only
+the (step, key) pairs with a real slot, each cut to its last real slot
+(``_solve_steps``, once per plan on the host): padded slots only touch
+the pad row n.
 ``solve_host`` solves on the downloaded factor with the host trisolves.
 Spans (``utils.profiling``, recorded only under a profiler or
 ``recording()``) mark the plan, the factor with its uploads, segments,
@@ -166,6 +170,13 @@ def _pools_on(host: dict, device) -> Dict:
 SCRATCH_LANES = 128         # the scratch's row width, as JAX pads it
 
 
+def _fill(act: np.ndarray) -> np.ndarray:
+    """One past the last active slot of each step of a (steps, slots)
+    mask; 0 where a step has none."""
+    return np.where(act.any(axis=1),
+                    act.shape[1] - np.argmax(act[:, ::-1], axis=1), 0)
+
+
 def _fills(xs: Dict[tuple, Dict[str, np.ndarray]]) -> Dict[tuple,
                                                            np.ndarray]:
     """{key: active units a step} of one segment's aggregated phases.
@@ -175,9 +186,8 @@ def _fills(xs: Dict[tuple, Dict[str, np.ndarray]]) -> Dict[tuple,
     out = {}
     for key, d in xs.items():
         if key[0] in ("updg", "upda"):
-            act = (d["src" if key[0] == "updg" else "srd"] >= 0).any(axis=2)
-            out[key] = np.where(act.any(axis=1), act.shape[1]
-                                - np.argmax(act[:, ::-1], axis=1), 0)
+            out[key] = _fill(
+                (d["src" if key[0] == "updg" else "srd"] >= 0).any(axis=2))
     return out
 
 
@@ -495,29 +505,49 @@ def _od_solve(pools: Pools, items: list, xpad: torch.Tensor, c: _Consts,
         _od_apply(a, xpad, d, backward)
 
 
-def _segment_solve(xs: Sched, pools: Pools, xpad: torch.Tensor,
-                   c: _Consts, backward: bool, batches=whole) -> None:
-    """One segment's steps, forward or backward; the od GEMMs go through
-    ``batches`` (device/batching.py)."""
+def _solve_steps(xs: Dict[tuple, Dict[str, np.ndarray]], n: int
+                 ) -> List[Dict[tuple, Dict[str, np.ndarray]]]:
+    """One segment of ``_solve_xs`` as per-step schedules ({key: {name:
+    array}}, keys in sorted order) of the (step, key) pairs that hold a
+    real slot, each cut to its fill (``_fill``); steps without one are
+    dropped.  A chol slot is real where a ``cols`` entry is below n, a
+    trsm slot where a ``cols`` or ``tgt`` entry is.  A padded slot only
+    writes row n or adds zeros to it, so the cut leaves each real slot's
+    arithmetic as it was (a GEMM library may still round a slot by the
+    size of its batch: torch's CPU ``bmm`` takes another path for one)."""
     keys = sorted(xs)
-    ck = [k for k in keys if k[0] == "chol"]
-    tk = [k for k in keys if k[0] == "trsm"]
-    nn = xpad.shape[0] - 1
-    steps = next(iter(xs[keys[0]].values())).shape[0]
-    for step in (range(steps - 1, -1, -1) if backward else range(steps)):
-        def at(k):
-            return {nm: v[step] for nm, v in xs[k].items()}
-        if not backward:
-            for k in ck:
-                _diag_solve(pools, k, at(k), xpad, c, False)
-            _od_solve(pools, [(k, at(k)) for k in tk], xpad, c, False,
-                      batches)
-        else:
-            _od_solve(pools, [(k, at(k)) for k in tk], xpad, c, True,
-                      batches)
-            for k in ck:
-                _diag_solve(pools, k, at(k), xpad, c, True)
-        xpad[nn] = 0.0
+    fills = {}
+    for key in keys:
+        d = xs[key]
+        real = (d["cols"] < n).any(axis=2)
+        if key[0] == "trsm":
+            real |= (d["tgt"] < n).any(axis=2)
+        fills[key] = _fill(real)
+    out = []
+    for step in range(len(fills[keys[0]])):
+        got = {k: {nm: v[step, :fills[k][step]] for nm, v in xs[k].items()}
+               for k in keys if fills[k][step]}
+        if got:
+            out.append(got)
+    return out
+
+
+def _step_solve(xs: Sched, pools: Pools, xpad: torch.Tensor, c: _Consts,
+                backward: bool, batches=whole) -> None:
+    """One step's pairs (``_solve_steps``), forward (diagonal solves,
+    then the od GEMMs) or backward (the reverse); the od GEMMs go through
+    ``batches`` (device/batching.py).  Row n is zeroed after the step."""
+    ck = [(k, a) for k, a in xs.items() if k[0] == "chol"]
+    tk = [(k, a) for k, a in xs.items() if k[0] == "trsm"]
+    if not backward:
+        for k, a in ck:
+            _diag_solve(pools, k, a, xpad, c, False)
+        _od_solve(pools, tk, xpad, c, False, batches)
+    else:
+        _od_solve(pools, tk, xpad, c, True, batches)
+        for k, a in ck:
+            _diag_solve(pools, k, a, xpad, c, True)
+    xpad[xpad.shape[0] - 1] = 0.0
 
 
 class SuperscanCholesky:
@@ -578,19 +608,22 @@ class SuperscanCholesky:
         return ok
 
     def _sched(self) -> List[Sched]:
-        """The solve schedule, built and uploaded once, kept on the
-        device."""
+        """The solve schedule, one entry a step: the pairs with a real
+        slot, cut to their fill (``_solve_steps``), built and uploaded
+        once, kept on the device."""
         if self._solve_sched is None:
+            n = self.plan.n
             self._solve_sched = _Packed(
-                [xs for xs in _solve_xs(self.plan) if xs]
-            ).upload(self.device)
+                [st for xs in _solve_xs(self.plan) if xs
+                 for st in _solve_steps(xs, n)]).upload(self.device)
         return self._solve_sched
 
     def _solve_f32_many(self, Bm: np.ndarray, batches=whole) -> np.ndarray:
         """Forward then backward over the pools on the (n, k) right-hand
         sides at once, in f32 (JAX: the segment solves vmapped over the
         RHS axis, superscan.py:2267-2299); the factor never leaves the
-        device.  ``batches`` as in ``_segment_solve``."""
+        device.  ``batches`` as in ``_step_solve``.  Each direction's
+        span counts the ``pairs`` it runs."""
         plan = self.plan
         Bm = np.asarray(Bm, np.float64)
         with span("superscan.solve.sweep"):
@@ -598,14 +631,18 @@ class SuperscanCholesky:
             xpad[:plan.n] = Bm[plan.perm]
             xpad = torch.from_numpy(xpad).to(self.device)
             sched = self._sched()
-            with span("superscan.solve.forward"):
+            with span("superscan.solve.forward") as sp:
                 for xs in sched:
-                    _segment_solve(xs, self.pools, xpad, self._consts,
-                                   False, batches)
-            with span("superscan.solve.backward"):
+                    _step_solve(xs, self.pools, xpad, self._consts, False,
+                                batches)
+                if sp:
+                    count("pairs", sum(map(len, sched)))
+            with span("superscan.solve.backward") as sp:
                 for xs in reversed(sched):
-                    _segment_solve(xs, self.pools, xpad, self._consts,
-                                   True, batches)
+                    _step_solve(xs, self.pools, xpad, self._consts, True,
+                                batches)
+                if sp:
+                    count("pairs", sum(map(len, sched)))
             X = np.zeros((plan.n, Bm.shape[1]))
             X[plan.perm] = xpad[:plan.n].cpu().numpy()
         return X
