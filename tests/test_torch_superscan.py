@@ -590,12 +590,17 @@ def _slotwise_bmm(a, b):
     return torch.stack([torch.mm(x, y) for x, y in zip(a, b)])
 
 
-def _full_capacity_sweep(F, B):
+def _full_capacity_sweep(F, B, eng):
     """x of one f32 sweep over every key of ``_solve_xs`` at every step at
     full capacity, padded slots included, row n zeroed after each step
-    (the sweep as it ran before its pairs were packed)."""
+    (the sweep as it ran before its pairs were packed), with the
+    ``_diag_solve`` and ``_od_delta`` of the engine's module ``eng``; an
+    LU's row matching is applied to B first, as its ``_solve_f32_many``
+    applies it."""
     plan, c = F.plan, tss._Consts("cpu")
     n = plan.n
+    if getattr(F, "_match_p", None) is not None:
+        B = B[F._match_p]
     x0 = np.zeros((n + 1, B.shape[1]), np.float32)
     x0[:n] = B[plan.perm]
     xpad = torch.from_numpy(x0)
@@ -610,12 +615,12 @@ def _full_capacity_sweep(F, B):
             at = {k: {nm: v[step] for nm, v in xs[k].items()} for k in keys}
             if not backward:
                 for k in ck:
-                    tss._diag_solve(F.pools, k, at[k], xpad, c, False)
+                    eng._diag_solve(F.pools, k, at[k], xpad, c, False)
             tss._od_solve(F.pools, [(k, at[k]) for k in tk], xpad, c,
-                          backward)
+                          backward, delta=eng._od_delta)
             if backward:
                 for k in ck:
-                    tss._diag_solve(F.pools, k, at[k], xpad, c, True)
+                    eng._diag_solve(F.pools, k, at[k], xpad, c, True)
             xpad[n] = 0.0
 
     full = tss._Packed([xs for xs in tsp._solve_xs(plan) if xs]).upload(
@@ -629,21 +634,38 @@ def _full_capacity_sweep(F, B):
     return X
 
 
+# the LU cases of test_torch_superscan_lu.py that the shared solve sweep
+# is also held on, named "lu_<case>"
+LU_SWEEP_CASES = ["lu_fuzz60", "lu_matched"]
+
+
+def _engine(name, rng, monkeypatch):
+    """(engine, its module) for a case of ``FACTOR_CASES`` or
+    ``LU_SWEEP_CASES``, not yet factored."""
+    if name.startswith("lu_"):
+        from test_torch_superscan_lu import CASES as LU_CASES
+        from tpusparse_torch.device import superscan_lu as tlu
+        make, kw = LU_CASES[name[3:]]
+        return tlu.SuperscanLU(_port(make(rng)), device="cpu", **kw), tlu
+    d, A, kw = _setup(name, rng, monkeypatch)
+    return tss.SuperscanCholesky(_port(A), device="cpu", **kw), tss
+
+
 @pytest.mark.parametrize("k", [1, 4])
-@pytest.mark.parametrize("name", FACTOR_CASES)
+@pytest.mark.parametrize("name", FACTOR_CASES + LU_SWEEP_CASES)
 def test_packed_sweep_is_bit_for_bit_the_full_capacity_one(
         rng, monkeypatch, name, k):
     """The f32 sweep over the packed pairs (``_solve_f32_many``) returns
-    exactly the x of the full-capacity loop on k right-hand sides: a
-    padded slot only writes row n or adds zeros to it.  Both run with
-    ``_slotwise_bmm``, so that a batch cut to its fill computes each of
-    its slots as the full batch does."""
-    d, A, kw = _setup(name, rng, monkeypatch)
-    F = tss.SuperscanCholesky(_port(A), device="cpu", **kw)
+    exactly the x of the full-capacity loop on k right-hand sides, for
+    the Cholesky and the LU alike: a padded slot only writes row n or
+    adds zeros to it.  Both run with ``_slotwise_bmm``, so that a batch
+    cut to its fill computes each of its slots as the full batch does."""
+    F, eng = _engine(name, rng, monkeypatch)
     assert F.factor()
-    B = rng.normal(size=(A.n, k))
+    B = rng.normal(size=(F.A.n, k))
     monkeypatch.setattr(torch, "bmm", _slotwise_bmm)
-    assert np.array_equal(F._solve_f32_many(B), _full_capacity_sweep(F, B))
+    assert np.array_equal(F._solve_f32_many(B),
+                          _full_capacity_sweep(F, B, eng))
 
 
 def _packed_by_slot(xs_list, n):
@@ -672,14 +694,13 @@ def _packed_by_slot(xs_list, n):
 
 
 @pytest.mark.parametrize("name", ["spd90_o1", "band", "seg_dp",
-                                  "agg_mixed"])
+                                  "agg_mixed"] + LU_SWEEP_CASES)
 def test_packed_solve_schedule_keeps_the_real_pairs(rng, monkeypatch, name):
     """The solve schedule on the device holds exactly the pairs with a
     real slot, each cut to its last real slot, keys in sorted order, in
     int64 in one buffer of just their entries; the full-capacity
-    schedule holds more."""
-    d, A, kw = _setup(name, rng, monkeypatch)
-    F = tss.SuperscanCholesky(_port(A), device="cpu", **kw)
+    schedule holds more.  The LU's schedule is built the same way."""
+    F = _engine(name, rng, monkeypatch)[0]
     full = [xs for xs in tsp._solve_xs(F.plan) if xs]
     want = _packed_by_slot(full, F.plan.n)
     got = F._sched()

@@ -252,6 +252,26 @@ def test_pairs_are_not_computed_when_nothing_records(factored,
                                  {"pairs": sum(map(len, sched))}]
 
 
+def test_lu_sweep_names_its_own_spans():
+    """The LU's f32 sweep, the Cholesky's shared ``_solve_sweep``, records
+    its spans under ``superscan_lu.solve``: the forward and backward
+    spans inside the sweep's, each counting the pairs of the LU's packed
+    schedule."""
+    from tpusparse_torch.device.superscan_lu import SuperscanLU
+    F = SuperscanLU(_grid3d(5), order=1, device="cpu")
+    assert F.factor()
+    with recording() as rec:
+        F._solve_f32_many(np.ones((F.A.n, 2)))
+    root = rec[0]
+    assert all(root.start <= s.start and s.end <= root.end for s in rec)
+    pairs = sum(map(len, F._sched()))
+    assert pairs > 0
+    assert [(s.name, s.parent, s.counts) for s in rec] == [
+        ("superscan_lu.solve.sweep", -1, {}),
+        ("superscan_lu.solve.forward", root.index, {"pairs": pairs}),
+        ("superscan_lu.solve.backward", root.index, {"pairs": pairs})]
+
+
 def test_apply_records_one_span(factored):
     plan = spmv_plan(factored.A, "auto", device="cpu")
     with recording() as rec:

@@ -36,13 +36,17 @@ refinement (``refine``; ``refine_many`` for ``solve_many``).  JAX runs
 every key of every step at full capacity; here the schedule keeps only
 the (step, key) pairs with a real slot, each cut to its last real slot
 (``_solve_steps``, once per plan on the host): padded slots only touch
-the pad row n.
+the pad row n.  One sweep serves both superscan engines: the Cholesky
+here and ``superscan_lu``'s LU each build their schedule with
+``_solve_schedule`` and sweep it with ``_solve_sweep``, which walks each
+step with ``_step_solve`` and takes the engine's diagonal solve and od
+GEMMs from its caller.
 ``solve_host`` solves on the downloaded factor with the host trisolves.
 Spans (``utils.profiling``, recorded only under a profiler or
 ``recording()``) mark the plan, the factor with its uploads, segments,
-phases and check, and the solve with its sweeps; the shared step loop
-takes its spans' names from its caller (``_Phases.name``).
-The copied
+phases and check, and the solve with its sweeps; the shared factor
+and solve loops take their spans' names from their caller
+(``_Phases.name``, ``_solve_sweep``'s ``name``).  The copied
 ``_solve_xs`` has no per-step slot cap (superscan.py:1895-1944, the
 relay's TPUSPARSE_SOLVE_SLOT_CAP, default 1024): the cap pads every key
 of a segment into every sub-step, which at the g=48 3D Laplacian grows
@@ -532,22 +536,62 @@ def _solve_steps(xs: Dict[tuple, Dict[str, np.ndarray]], n: int
     return out
 
 
-def _step_solve(xs: Sched, pools: Pools, xpad: torch.Tensor, c: _Consts,
-                backward: bool, batches=whole) -> None:
+def _step_solve(xs: Sched, pools, xpad: torch.Tensor, c: _Consts,
+                backward: bool, batches=whole, diag=_diag_solve,
+                delta=_od_delta) -> None:
     """One step's pairs (``_solve_steps``), forward (diagonal solves,
     then the od GEMMs) or backward (the reverse); the od GEMMs go through
-    ``batches`` (device/batching.py).  Row n is zeroed after the step."""
+    ``batches`` (device/batching.py).  ``diag`` and ``delta`` are the
+    engine's diagonal solve and od GEMMs (``_diag_solve`` and
+    ``_od_delta`` here, ``superscan_lu``'s for the LU).  Row n is zeroed
+    after the step."""
     ck = [(k, a) for k, a in xs.items() if k[0] == "chol"]
     tk = [(k, a) for k, a in xs.items() if k[0] == "trsm"]
     if not backward:
         for k, a in ck:
-            _diag_solve(pools, k, a, xpad, c, False)
-        _od_solve(pools, tk, xpad, c, False, batches)
+            diag(pools, k, a, xpad, c, False)
+        _od_solve(pools, tk, xpad, c, False, batches, delta)
     else:
-        _od_solve(pools, tk, xpad, c, True, batches)
+        _od_solve(pools, tk, xpad, c, True, batches, delta)
         for k, a in ck:
-            _diag_solve(pools, k, a, xpad, c, True)
+            diag(pools, k, a, xpad, c, True)
     xpad[xpad.shape[0] - 1] = 0.0
+
+
+def _solve_schedule(plan: SuperscanPlan, device) -> List[Sched]:
+    """The solve schedule of ``plan`` on ``device``, one entry a step: the
+    pairs of ``_solve_xs`` with a real slot, cut to their fill
+    (``_solve_steps``), in one uploaded buffer (``_Packed``)."""
+    return _Packed([st for xs in _solve_xs(plan) if xs
+                    for st in _solve_steps(xs, plan.n)]).upload(device)
+
+
+def _solve_sweep(F, Bm: np.ndarray, batches, name: str, diag,
+                 delta) -> np.ndarray:
+    """One f32 sweep of the factored engine ``F`` (its ``plan``,
+    ``pools``, ``_sched()``, ``_consts`` and ``device``) on the (n, k)
+    right-hand sides at once: forward then backward over the packed
+    steps (``_step_solve`` with ``batches``, ``diag`` and ``delta``); the
+    factor never leaves the device.  The spans are named under ``name``
+    (``<name>.sweep`` around ``<name>.forward`` and ``<name>.backward``),
+    and each direction's span counts the ``pairs`` it runs."""
+    plan = F.plan
+    Bm = np.asarray(Bm, np.float64)
+    with span(f"{name}.sweep"):
+        xpad = np.zeros((plan.n + 1, Bm.shape[1]), dtype=np.float32)
+        xpad[:plan.n] = Bm[plan.perm]
+        xpad = torch.from_numpy(xpad).to(F.device)
+        sched = F._sched()
+        for way, steps in (("forward", sched), ("backward", reversed(sched))):
+            with span(f"{name}.{way}") as sp:
+                for xs in steps:
+                    _step_solve(xs, F.pools, xpad, F._consts,
+                                way == "backward", batches, diag, delta)
+                if sp:
+                    count("pairs", sum(map(len, sched)))
+        X = np.zeros((plan.n, Bm.shape[1]))
+        X[plan.perm] = xpad[:plan.n].cpu().numpy()
+    return X
 
 
 class SuperscanCholesky:
@@ -608,44 +652,20 @@ class SuperscanCholesky:
         return ok
 
     def _sched(self) -> List[Sched]:
-        """The solve schedule, one entry a step: the pairs with a real
-        slot, cut to their fill (``_solve_steps``), built and uploaded
+        """The solve schedule (``_solve_schedule``), built and uploaded
         once, kept on the device."""
         if self._solve_sched is None:
-            n = self.plan.n
-            self._solve_sched = _Packed(
-                [st for xs in _solve_xs(self.plan) if xs
-                 for st in _solve_steps(xs, n)]).upload(self.device)
+            self._solve_sched = _solve_schedule(self.plan, self.device)
         return self._solve_sched
 
     def _solve_f32_many(self, Bm: np.ndarray, batches=whole) -> np.ndarray:
         """Forward then backward over the pools on the (n, k) right-hand
         sides at once, in f32 (JAX: the segment solves vmapped over the
-        RHS axis, superscan.py:2267-2299); the factor never leaves the
-        device.  ``batches`` as in ``_step_solve``.  Each direction's
-        span counts the ``pairs`` it runs."""
-        plan = self.plan
-        Bm = np.asarray(Bm, np.float64)
-        with span("superscan.solve.sweep"):
-            xpad = np.zeros((plan.n + 1, Bm.shape[1]), dtype=np.float32)
-            xpad[:plan.n] = Bm[plan.perm]
-            xpad = torch.from_numpy(xpad).to(self.device)
-            sched = self._sched()
-            with span("superscan.solve.forward") as sp:
-                for xs in sched:
-                    _step_solve(xs, self.pools, xpad, self._consts, False,
-                                batches)
-                if sp:
-                    count("pairs", sum(map(len, sched)))
-            with span("superscan.solve.backward") as sp:
-                for xs in reversed(sched):
-                    _step_solve(xs, self.pools, xpad, self._consts, True,
-                                batches)
-                if sp:
-                    count("pairs", sum(map(len, sched)))
-            X = np.zeros((plan.n, Bm.shape[1]))
-            X[plan.perm] = xpad[:plan.n].cpu().numpy()
-        return X
+        RHS axis, superscan.py:2267-2299), in spans
+        ``superscan.solve.*`` (``_solve_sweep``); ``batches`` as in
+        ``_step_solve``."""
+        return _solve_sweep(self, Bm, batches, "superscan.solve",
+                            _diag_solve, _od_delta)
 
     def _solve_f32(self, b: np.ndarray) -> np.ndarray:
         return self._solve_f32_many(np.asarray(b, np.float64)[:, None])[:, 0]

@@ -27,10 +27,14 @@ per step, in sorted key order:
 Then one stacked reduction and one host sync give finiteness and the
 pivot growth max|L\\U| / max|A|.
 
-Solve: the superscan solve schedule (copied ``_solve_xs``), forward
-(P as a gather, unit-lower diagonal solve, od GEMVs from the L pool) and
-backward (od GEMVs from the U pool, upper diagonal solve), on an
-(n + 1, k) right-hand side, then host f64 refinement.
+Solve: the Cholesky's sweep (``superscan._solve_sweep``) over the same
+packed solve schedule (``superscan._solve_schedule``: the (step, key)
+pairs of the copied ``_solve_xs`` with a real slot), each step walked by
+the shared ``superscan._step_solve`` with this engine's ``_diag_solve``
+and ``_od_delta``: forward (P as a gather, unit-lower diagonal solve, od
+GEMVs from the L pool) and backward (od GEMVs from the U pool, upper
+diagonal solve), on an (n + 1, k) right-hand side, then host f64
+refinement.
 
 Not ported: the TPUSPARSE_LU_HOST_SOLVE switch of ``solve`` (the host
 extract path is ``solve_host``), and what serves the JAX compile cache
@@ -61,7 +65,7 @@ from . import superscan
 from .batching import whole
 from .superscan import (_Consts, _Packed, _each, _factor, _host_pools,
                         _pools_on)
-from .superscan_plan import _IDX, _solve_xs, plan_superscan
+from .superscan_plan import _IDX, plan_superscan
 
 __all__ = ["SuperscanLU"]
 
@@ -188,34 +192,6 @@ def _od_delta(pools: LUPools, key: tuple, a, xpad: torch.Tensor,
         xod = torch.where(mask, xpad[a["tgt"]], c.zero)    # (U, H, k)
         return (torch.bmm(Y.mT, xod),)
     return (torch.bmm(Y, xpad[a["cols"]]),)
-
-
-_od_solve = functools.partial(superscan._od_solve, delta=_od_delta)
-
-
-def _segment_solve(xs, pools: LUPools, xpad: torch.Tensor, c: _Consts,
-                   backward: bool, batches=whole) -> None:
-    """One segment's steps, forward or backward; the od GEMVs go through
-    ``batches`` (device/batching.py)."""
-    keys = sorted(xs)
-    ck = [k for k in keys if k[0] == "chol"]
-    tk = [k for k in keys if k[0] == "trsm"]
-    nn = xpad.shape[0] - 1
-    steps = next(iter(xs[keys[0]].values())).shape[0]
-    for step in (range(steps - 1, -1, -1) if backward else range(steps)):
-        def at(k):
-            return {nm: v[step] for nm, v in xs[k].items()}
-        if not backward:
-            for k in ck:
-                _diag_solve(pools, k, at(k), xpad, c, False)
-            _od_solve(pools, [(k, at(k)) for k in tk], xpad, c, False,
-                      batches)
-        else:
-            _od_solve(pools, [(k, at(k)) for k in tk], xpad, c, True,
-                      batches)
-            for k in ck:
-                _diag_solve(pools, k, at(k), xpad, c, True)
-        xpad[nn] = 0.0
 
 
 class SuperscanLU:
@@ -488,35 +464,25 @@ class SuperscanLU:
         return ipvec(self.plan.perm, xp)
 
     def _sched(self):
-        """The solve schedule, built and uploaded once, kept on the
-        device."""
+        """The solve schedule (``superscan._solve_schedule``), built and
+        uploaded once, kept on the device."""
         if self._solve_sched is None:
-            self._solve_sched = _Packed(
-                [xs for xs in _solve_xs(self.plan) if xs]
-            ).upload(self.device)
+            self._solve_sched = superscan._solve_schedule(self.plan,
+                                                          self.device)
         return self._solve_sched
 
     def _solve_f32_many(self, Bm: np.ndarray, batches=whole) -> np.ndarray:
-        """Forward then backward over the pools on the (n, k) right-hand
-        sides at once, in f32; the factor never leaves the device.
-        ``batches`` as in ``_segment_solve``."""
-        plan = self.plan
+        """The row matching applied to the (n, k) right-hand sides, then
+        the shared f32 sweep (``superscan._solve_sweep``) with this
+        engine's diagonal solve and od GEMMs, in spans
+        ``superscan_lu.solve.*``; ``batches`` as in
+        ``superscan._step_solve``."""
         Bm = np.asarray(Bm, np.float64)
         if self._match_p is not None:
             Bm = Bm[self._match_p]
-        xpad = np.zeros((plan.n + 1, Bm.shape[1]), dtype=np.float32)
-        xpad[:plan.n] = Bm[plan.perm]
-        xpad = torch.from_numpy(xpad).to(self.device)
-        sched = self._sched()
-        for xs in sched:
-            _segment_solve(xs, self.pools, xpad, self._consts, False,
-                           batches)
-        for xs in reversed(sched):
-            _segment_solve(xs, self.pools, xpad, self._consts, True,
-                           batches)
-        X = np.zeros((plan.n, Bm.shape[1]))
-        X[plan.perm] = xpad[:plan.n].cpu().numpy()
-        return X
+        return superscan._solve_sweep(self, Bm, batches,
+                                      "superscan_lu.solve", _diag_solve,
+                                      _od_delta)
 
     def _solve_f32(self, b: np.ndarray) -> np.ndarray:
         return self._solve_f32_many(np.asarray(b, np.float64)[:, None])[:, 0]
