@@ -124,6 +124,17 @@ def test_superscan_lu_factor_checkpoint(rng, tmp_path):
     assert F.factor()
     pth = str(tmp_path / "sslu.npz")
     tck.save_superscan_lu_factor(pth, F)
+    # JAX's keys, and pools of the plan's shapes (the factor's scratch
+    # rows lie inside them)
+    J = JSuperscanLU(csc_from_dense(d), order=1, **SMALL)
+    assert J.factor()
+    jck.save_superscan_lu_factor(str(tmp_path / "jax.npz"), J)
+    z, zj = np.load(pth), np.load(str(tmp_path / "jax.npz"))
+    assert sorted(z.files) == sorted(zj.files)
+    for side in ("L", "U"):
+        for pw, v in F.plan.pool_init.items():
+            key = f"pool_{side}_{pw}"
+            assert z[key].shape == zj[key].shape == v.shape, key
     F2 = tck.load_superscan_lu_factor(pth, A, device="cpu", order=1,
                                       **SMALL)
     assert F2.perturbed == F.perturbed

@@ -5,15 +5,18 @@ the same matrix (pools within a tolerance, pivots identical), and the
 port's solve on the JAX factor.  Inputs are made with numpy seeds and
 handed to both packages; every port call runs on device="cpu"."""
 
+import functools
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from tpusparse.core import CSCMatrix, csc_from_dense
 from tpusparse.device import superscan_lu as jlu
 from tpusparse_torch.core import CSCMatrix as TCSC
-from tpusparse_torch.device import superscan_lu as tlu
+from tpusparse_torch.device import superscan, superscan_lu as tlu
 from tpusparse_torch.device.superscan_lu import SuperscanLU
 from tpusparse_torch.utils.profiling import recording
 from helpers import resid
@@ -482,6 +485,143 @@ def test_panel_in_place_matches_gather_path(monkeypatch, order, tol):
     assert pools[1].keys() == pools[0].keys()
     for k, v in pools[0].items():
         assert torch.equal(v, pools[1][k]), k
+
+
+def _masked_delta(pools, key, a, c):
+    """The update deltas as the port computed them on the plan's own
+    schedule: -1 masked by ``torch.where`` after a clamped gather, dU
+    zeroed on the diagonal block (tgtu < 0)."""
+    kind, pd, ps, H, Wd, Ws = key
+    Ld, Ud = pools[("L", pd)][:, :Wd], pools[("U", pd)][:, :Wd]
+    src, l0i = a["src"], a["l0"]
+    ms, m0 = (src >= 0)[..., None], (l0i >= 0)[..., None]
+    s, t = src.clamp(min=0), l0i.clamp(min=0)
+    l1 = torch.where(ms, Ld[s], c.zero)
+    u1 = torch.where(ms, Ud[s], c.zero)
+    u0 = torch.where(m0, Ud[t], c.zero)
+    l0 = torch.where(m0, Ld[t], c.zero)
+    dL = torch.bmm(l1, u0.mT)
+    dU = torch.where((a["tgtu"] >= 0)[..., None], torch.bmm(u1, l0.mT),
+                     c.zero)
+    return dL, dU
+
+
+def _masked_apply(pools, key, a, dL, dU):
+    """The scatter-adds at clamped targets, the plan's own schedule."""
+    kind, pd, ps, H, Wd, Ws = key
+    for side, tgt, delta in (("L", a["tgt"], dL), ("U", a["tgtu"], dU)):
+        acc = pools[(side, ps)]
+        if kind == "upds":
+            flat = tgt.clamp(min=0)[:, :, None] * ps + a["cmap"][:, None, :]
+            acc.view(-1).index_add_(0, flat.reshape(-1), delta.reshape(-1),
+                                    alpha=-1)
+        else:
+            acc[:, :Ws].index_add_(0, tgt.clamp(min=0).reshape(-1),
+                                   delta.reshape(-1, Ws), alpha=-1)
+
+
+def _padding(plan) -> dict:
+    """{(kind, what): entries} of the plan's update keys: padded src, l0
+    and tgt, and real rows of the diagonal block (tgt >= 0 > tgtu)."""
+    got = {}
+    for seg in plan.segments:
+        for key, a in seg.xs.items():
+            if key[0] not in ("upd", "upds"):
+                continue
+            for what, n in (("src", (a["src"] < 0).sum()),
+                            ("l0", (a["l0"] < 0).sum()),
+                            ("tgt", (a["tgt"] < 0).sum()),
+                            ("diag", ((a["tgt"] >= 0)
+                                      & (a["tgtu"] < 0)).sum())):
+                got[(key[0], what)] = got.get((key[0], what), 0) + int(n)
+    return got
+
+
+@pytest.mark.parametrize("tol", [1.0, 0.0])
+def test_resolved_update_matches_masked_path(tol):
+    """The factor on the schedule whose padding is resolved at pack time
+    leaves every row of every pool but the update phase's dump row bit
+    for bit as the masked path leaves it on the plan's own schedule (a
+    g=10 LU plan whose upd and upds keys both hold padded src, l0 and tgt
+    entries and diagonal-block rows); the zero row is still 0, no entry
+    of the packed schedule is negative, ``remapped`` counts the -1s
+    redirected, and extract_LU and the f32 solve give what the masked
+    pools give."""
+    A = _convdiff_3d(10)
+    F = _lu(A, order=1, tol=tol)
+    pad = _padding(F.plan)
+    assert all(pad.get((kind, what), 0) > 0 for kind in ("upd", "upds")
+               for what in ("src", "l0", "tgt", "diag")), pad
+    minus = sum(int((a[nm] < 0).sum()) for s in F.plan.segments
+                for k, a in s.xs.items() if k[0] in ("upd", "upds")
+                for nm in ("src", "l0", "tgt", "tgtu"))
+    with recording() as rec:
+        assert F.factor()
+    up = [s for s in rec if s.name == "superscan_lu.factor.upload"]
+    assert [s.counts.get("remapped") for s in up] == [minus, None]
+    ph = tlu._phases(F._eps(), F.tol)
+    masked = functools.partial(superscan._upd_step, delta=_masked_delta,
+                               apply=_masked_apply)
+    ph = superscan._Phases(ph.name, ((ph.runs[0][0], ph.runs[0][1],
+                                      masked),) + ph.runs[1:])
+    pools = {(side, pw): torch.tensor(v)
+             for side, host in (("L", F._Lp0), ("U", F._Up0))
+             for pw, v in host.items()}
+    superscan._factor(F.plan, pools, None, ph)
+    assert pools.keys() == F.pools.keys()
+    for k, v in pools.items():
+        dump, zero = tlu._pad_rows(F.plan, k[1])
+        keep = torch.ones(v.shape[0], dtype=torch.bool)
+        keep[dump] = False
+        assert torch.equal(F.pools[k][keep].view(torch.int32),
+                           v[keep].view(torch.int32)), k
+        assert torch.equal(F.pools[k][zero].view(torch.int32),
+                           torch.zeros(k[1], dtype=torch.int32)), k
+    assert all((v >= 0).all() for xs in F._factor_sched.scheds
+               for d in xs.values() for v in d.values())
+    G = _lu(A, order=1, tol=tol)
+    G.load_pools({k: v.numpy() for k, v in pools.items()})
+    for got, want in zip(F.extract_LU(), G.extract_LU()):
+        if isinstance(want, np.ndarray):
+            assert np.array_equal(got, want)
+        else:
+            assert np.array_equal(got.indptr, want.indptr)
+            assert np.array_equal(got.indices, want.indices)
+            assert np.array_equal(got.data, want.data)
+    b = np.random.default_rng(3).normal(size=A.n)
+    assert np.array_equal(F._solve_f32(b), G._solve_f32(b))
+
+
+class _Ops(TorchDispatchMode):
+    """Counts the aten ops that are not views."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not func.is_view:
+            self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("kind,ops", [("upd", 8), ("upds", 10)])
+def test_update_pair_issues_gathers_gemms_and_scatters_only(kind, ops):
+    """One update pair issues four gathers, two ``bmm`` and two
+    ``index_add_`` (upds: and the two adds of its flat indices), and no
+    mask, clamp or ``where``."""
+    F = _lu(_convdiff_3d(10), order=1)
+    assert F.factor()
+    key, a = next((k, {nm: v[0] for nm, v in d.items()})
+                  for xs in F._factor_sched.scheds for k, d in xs.items()
+                  if k[0] == kind)
+    with _Ops() as got:
+        tlu._upd_apply(F.pools, key, a,
+                       *tlu._upd_delta(F.pools, key, a, F._consts))
+    assert len(got.ops) == ops, got.ops
+    assert sorted(set(got.ops)) == sorted(
+        {"aten.index.Tensor", "aten.bmm.default", "aten.index_add_.default"}
+        | ({"aten.add.Tensor"} if kind == "upds" else set()))
 
 
 def test_not_square_and_default_device():

@@ -11,9 +11,12 @@ width) and ("U", pool width).
 Factor: the host step loop of ``superscan._factor`` with three LU phases
 per step, in sorted key order:
   update (d -> s):  dL = L1 U0^T into L[tgt], dU = U1 L0^T into U[tgtu]
-                    (masked gathers, two ``bmm``, ``index_add_`` into
-                    clamped targets; tgtu < 0 marks the diagonal block,
-                    whose rows add exact zeros to row 0);
+                    (four plain gathers, two ``bmm``, two ``index_add_``;
+                    the schedule's padding is resolved when it is packed,
+                    ``_resolve``: a padded gather reads a row that stays
+                    zero, and a padded target, or a dU row of the
+                    diagonal block (tgtu < 0), adds into a row that no
+                    phase reads);
   panel LU:         ``kernels.lu_tiles_pool`` on the W x W diagonal
                     blocks, in place (threshold pivoting inside the
                     block, tiny pivots perturbed to +-eps), F into the L
@@ -73,40 +76,83 @@ LUPools = Dict[Tuple[str, int], torch.Tensor]
 
 
 # ------------------------------------------------------------------ factor
+def _pad_rows(plan, pw: int) -> tuple:
+    """(dump, zero): two rows of pool pw's dump block, the plan's last
+    rows ([real rows][pw identity rows][dump rows],
+    ``superscan_plan.plan_superscan``), past the first dump row, which
+    the trsm phase's padded rows read and write.  No phase reads the
+    dump row, and no phase writes the zero row, which so reads 0 in
+    both the L and the U pool for a whole factor."""
+    dump = plan.pool_rows[pw] + pw + 1
+    return dump, dump + 1
+
+
+def _resolve(plan) -> tuple:
+    """The factor schedule of ``plan`` (every segment's xs) with the
+    update keys' padding resolved, on the host, once per plan: in copies
+    of their arrays, each -1 of ``src`` and ``l0`` points at the zero
+    row of pool pd, each -1 of ``tgt`` and each -1 of ``tgtu`` (a padded
+    row, or a row of the diagonal block, whose dU the LU discards) at
+    the dump row of pool ps (``_pad_rows``), and an "upds" key's ``tgt``
+    and ``tgtu`` are stored times ps, the flat index of their row.  The
+    plan's arrays, JAX's bit for bit, stay as they are.  Returns (the
+    segments' xs, the count of entries redirected)."""
+    out, remapped = [], 0
+    for seg in plan.segments:
+        if not seg.xs:
+            continue
+        xs = {}
+        for key, d in seg.xs.items():
+            kind = key[0]
+            if kind in ("upd", "upds"):
+                _, pd, ps = key[:3]
+                d = dict(d)
+                zero, dump = _pad_rows(plan, pd)[1], _pad_rows(plan, ps)[0]
+                for nm, row in (("src", zero), ("l0", zero), ("tgt", dump),
+                                ("tgtu", dump)):
+                    v = d[nm].copy()
+                    pad = v < 0
+                    v[pad] = row
+                    remapped += int(np.count_nonzero(pad))
+                    if kind == "upds" and nm in ("tgt", "tgtu"):
+                        if plan.pool_init[ps].size >= 2 ** 31:
+                            v = v.astype(np.int64)   # flat index past int32
+                        v = v * ps
+                    d[nm] = v
+            xs[key] = d
+        out.append(xs)
+    return out, remapped
+
+
 def _upd_delta(pools: LUPools, key: tuple, a: Dict[str, torch.Tensor],
                c: _Consts) -> tuple:
     """(dL, dU) = (L1 U0^T, U1 L0^T) from the pools of width pd for the
-    units of ``a`` (JAX: superscan_lu.py:171-207).  Padded slots carry -1
-    and gather row 0 under a false mask: their deltas are zero, as are
-    dU's rows on the diagonal block (tgtu < 0)."""
+    units of ``a`` (JAX: superscan_lu.py:171-207): four gathers and two
+    ``bmm``.  The schedule is ``_resolve``'s: a padded slot gathers the
+    zero row, so its operand is the 0 that JAX masks it to."""
     kind, pd, ps, H, Wd, Ws = key
     Ld, Ud = pools[("L", pd)][:, :Wd], pools[("U", pd)][:, :Wd]
     src, l0i = a["src"], a["l0"]
-    ms, m0 = (src >= 0)[..., None], (l0i >= 0)[..., None]
-    s, t = src.clamp(min=0), l0i.clamp(min=0)
-    l1 = torch.where(ms, Ld[s], c.zero)
-    u1 = torch.where(ms, Ud[s], c.zero)
-    u0 = torch.where(m0, Ud[t], c.zero)
-    l0 = torch.where(m0, Ld[t], c.zero)
-    dL = torch.bmm(l1, u0.mT)                              # (bs, H, Ws)
-    dU = torch.where((a["tgtu"] >= 0)[..., None], torch.bmm(u1, l0.mT),
-                     c.zero)
+    dL = torch.bmm(Ld[src], Ud[l0i].mT)                   # (bs, H, Ws)
+    dU = torch.bmm(Ud[src], Ld[l0i].mT)
     return dL, dU
 
 
 def _upd_apply(pools: LUPools, key: tuple, a: Dict[str, torch.Tensor],
                dL: torch.Tensor, dU: torch.Tensor) -> None:
     """Scatter-subtracts dL into the L pool and dU into the U pool of
-    width ps, at clamped targets."""
+    width ps, one ``index_add_`` each; for "upds" at the flat indices
+    tgt + cmap (``_resolve`` stores tgt times ps).  Padded rows and dU's
+    rows on the diagonal block add into the dump row."""
     kind, pd, ps, H, Wd, Ws = key
     for side, tgt, delta in (("L", a["tgt"], dL), ("U", a["tgtu"], dU)):
         acc = pools[(side, ps)]
         if kind == "upds":
-            flat = tgt.clamp(min=0)[:, :, None] * ps + a["cmap"][:, None, :]
+            flat = tgt[:, :, None] + a["cmap"][:, None, :]
             acc.view(-1).index_add_(0, flat.reshape(-1), delta.reshape(-1),
                                     alpha=-1)
         else:
-            acc[:, :Ws].index_add_(0, tgt.clamp(min=0).reshape(-1),
+            acc[:, :Ws].index_add_(0, tgt.reshape(-1),
                                    delta.reshape(-1, Ws), alpha=-1)
 
 
@@ -328,11 +374,14 @@ class SuperscanLU:
         """New device pools holding the mirrored pools of the scattered
         A, copied from host tensors made once (``superscan._host_pools``)
         in a span ``<name>.upload`` that counts their ``h2d_bytes``, and
-        the factor schedule, packed once (kept on the device by the
-        first factor, ``superscan._factor``)."""
+        the factor schedule, its padding resolved (``_resolve``) and
+        packed once (kept on the device by the first factor,
+        ``superscan._factor``); the call that packs it counts the
+        entries redirected, ``remapped``, on that span."""
+        remapped = None
         if self._factor_sched is None:
-            self._factor_sched = _Packed([s.xs for s in self.plan.segments
-                                          if s.xs])
+            xs, remapped = _resolve(self.plan)
+            self._factor_sched = _Packed(xs)
             self._pool_host = _host_pools(
                 {(side, int(pw)): v
                  for side, host in (("L", self._Lp0), ("U", self._Up0))
@@ -341,6 +390,8 @@ class SuperscanLU:
             pools = _pools_on(self._pool_host, self.device)
             if up:
                 count("h2d_bytes", sum(v.nbytes for v in pools.values()))
+                if remapped is not None:
+                    count("remapped", remapped)
         return pools
 
     def _eps(self) -> float:
@@ -408,7 +459,10 @@ class SuperscanLU:
         for pl in plan.panels:
             Pm = hostU[pl.pool][pl.rbase:pl.rbase + pl.w, :pl.W]
             pglob[pl.c0:pl.c0 + pl.w] = pl.c0 + np.argmax(Pm, axis=1)
-        pinv_g = _pinv(pglob)
+        # pinv_g = pinv(pglob), 0 where pglob is no permutation (pools
+        # that hold no factor): never uninitialized memory
+        pinv_g = np.zeros(n, dtype=_IDX)
+        pinv_g[pglob] = np.arange(n, dtype=_IDX)
         li, lj, lx = [], [], []               # L: unit diag + lower
         ui, uj, ux = [], [], []               # U: upper incl diag
         for pl in plan.panels:
