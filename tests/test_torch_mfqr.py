@@ -15,6 +15,8 @@
   diagonal that may be a rounding-level value;
 - the launches: one panel (H2) per panel of 8 columns of every (level,
   bucket) batch, one reflector application (H3) per io entry per pass;
+- ``extract_R``: R on its true pattern (``plan.rnz`` entries), the
+  pools' R entry for entry, against a plain f64 QR up to row signs;
 - twins of every test of tests/test_mfqr.py (same inputs, same limits)
   except ``test_group_dispatch_program_count``, which counts the JAX
   package's compiled programs (the port has no compiler), and
@@ -28,9 +30,11 @@ passes device="cpu", so the kernel wrappers run their plain versions."""
 
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 from bench import sparse_ls_problem
+from benchmark.matrices import poisson_ls
 from tpusparse.core import csc_from_dense
 from tpusparse.core.ops import norm1
 from tpusparse.device.mfqr import MultifrontalQR as JaxMultifrontalQR
@@ -171,9 +175,9 @@ def test_apply_and_solves_match_jax(generic, dispatch, rng):
     assert np.abs(F.solve_minnorm(bm) - J.solve_minnorm(bm)).max() < 1e-12
 
 
-def _signed_r(plan, pools):
-    """R (n x n, permuted coordinates) read from the pools, each row
-    scaled to a nonnegative diagonal."""
+def _dense_r(plan, pools):
+    """R (n x n, permuted coordinates) read from the pools front by front:
+    each front's pivot rows on and right of the diagonal."""
     R = np.zeros((plan.n, plan.n))
     for f in plan.fronts:
         P = np.asarray(pools[f.bucket][f.slot], np.float64)
@@ -183,6 +187,12 @@ def _signed_r(plan, pools):
             row = f.c0 + j
             keep = gcols >= row
             R[row, gcols[keep]] = P[j, np.flatnonzero(keep)]
+    return R
+
+
+def _signed_r(plan, pools):
+    """``_dense_r``, each row scaled to a nonnegative diagonal."""
+    R = _dense_r(plan, pools)
     s = np.where(np.diag(R) < 0, -1.0, 1.0)
     return R * s[:, None], s
 
@@ -271,18 +281,64 @@ def test_rtr_equals_ata(rng):
     d, A = _tall(rng, 90, 50, 0.12)
     F = _mfqr(A)
     assert F.factor()
-    n = A.n
-    R = np.zeros((n, n))
-    for f in F.plan.fronts:
-        P = F.pools[f.bucket][f.slot].numpy().astype(np.float64)
-        gcols = np.concatenate(
-            [np.arange(f.c0, f.c0 + f.w), f.od]).astype(int)
-        for j in range(f.w):
-            row = f.c0 + j
-            keep = gcols >= row
-            R[row, gcols[keep]] = P[j, np.flatnonzero(keep)]
+    R = _dense_r(F.plan, F.pools)
     Aq = d[:, F.plan.q]
     assert np.abs(R.T @ R - Aq.T @ Aq).max() < 1e-4
+
+
+# ------------------------------------------------------------- extract_R
+def _extracted(F) -> np.ndarray:
+    """``extract_R()`` as a dense array, after its exact checks: n x n,
+    ``plan.rnz`` entries, upper triangular, rows increasing in each
+    column."""
+    R = F.extract_R()
+    n = F.plan.n
+    assert (R.m, R.n, R.nnz) == (n, n, F.plan.rnz)
+    cols = np.repeat(np.arange(n), np.diff(R.indptr))
+    assert (R.indices <= cols).all()
+    assert (np.diff(R.indices)[np.diff(cols) == 0] > 0).all()
+    D = np.zeros((n, n))
+    D[R.indices, cols] = R.data
+    return D
+
+
+def test_extract_r_is_the_pools_r(rng):
+    """On ``test_rtr_equals_ata``'s matrix, ``extract_R()`` is the R that
+    its loop reads from the pools, entry for entry."""
+    _, A = _tall(rng, 90, 50, 0.12)
+    F = _mfqr(A)
+    assert F.factor()
+    assert np.array_equal(_extracted(F), _dense_r(F.plan, F.pools))
+
+
+@pytest.mark.parametrize("g", [6, 8, 10])
+def test_extract_r_on_the_regularized_poisson(g):
+    """``extract_R()`` of the QR cell's matrix (``benchmark.matrices``)
+    at a small grid: a plain f64 QR of A(:, q) up to row signs,
+    R^T R = A_q^T A_q, the loop's R on its pattern bit for bit and within
+    rounding off it (amalgamated positions that cancel in exact
+    arithmetic), and ``solve_ls`` at f64 grade against
+    ``numpy.linalg.lstsq``."""
+    m, n, indptr, indices, data = poisson_ls.build({"grid": g, "alpha": 0.5},
+                                                    None)
+    d = sp.csc_matrix((data, indices, indptr), shape=(m, n)).toarray()
+    F = MultifrontalQR(TCSC(m, n, indptr, indices, data), device="cpu")
+    assert F.factor()
+    R = _extracted(F)
+    Aq = d[:, F.plan.q]
+    nrm = np.abs(d).sum(axis=0).max()
+    Rref = torch.linalg.qr(torch.from_numpy(Aq), mode="r")[1].numpy()
+    sign = np.sign(np.diag(R))[:, None] * np.sign(np.diag(Rref))[:, None]
+    assert np.abs(R * sign - Rref).max() < 1e-6 * nrm
+    assert np.abs(R.T @ R - Aq.T @ Aq).max() < 1e-6 * nrm * nrm
+    loop = _dense_r(F.plan, F.pools)
+    on = R != 0
+    assert np.array_equal(loop[on], R[on])
+    assert np.abs(loop[~on]).max() < 1e-7 * nrm
+    b = np.random.default_rng(g).normal(size=m)
+    xref, *_ = np.linalg.lstsq(d, b, rcond=None)
+    assert np.abs(F.solve_ls(b) - xref).max() < 1e-12
+    assert F.last_info["ne_resid"] < 1e-14
 
 
 def test_ls_matches_lstsq(rng):

@@ -1,7 +1,8 @@
 """The port's span recorder (``tpusparse_torch.utils.profiling``) and the
-spans of the superscan factor, solve and SpMV, on the CPU: off unless
-asked for or under a profiler, the factor's tree and counts held to the
-plan, the buffer's bound, errors, the Chrome trace and the off cost."""
+spans of the superscan factor, solve and SpMV and of the multifrontal QR
+factor, on the CPU: off unless asked for or under a profiler, the
+factors' trees and counts held to the plan, the buffer's bound, errors,
+the Chrome trace and the off cost."""
 
 import collections
 import json
@@ -12,8 +13,10 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from benchmark.matrices import poisson_ls
 from tpusparse_torch.core import CSCMatrix
-from tpusparse_torch.device import superscan
+from tpusparse_torch.device import dense, superscan
+from tpusparse_torch.device.mfqr import MultifrontalQR
 from tpusparse_torch.device.spmv import spmv_plan
 from tpusparse_torch.utils import profiling, trace
 from tpusparse_torch.utils.profiling import add, recording, span
@@ -419,6 +422,75 @@ def test_other_factors_keep_their_schedule_resident(kind):
                     [s.name for s in rec].count(f"{name}.upload")))
     pools = int(kind.endswith("lu"))
     assert got == [(1, 1 + pools), (0, pools)]
+
+
+# ------------------------------------------------------ multifrontal QR
+def _poisson_ls(g: int) -> CSCMatrix:
+    """[L; 0.5 I], L the 5-point Laplacian on the g x g grid (the
+    benchmark's QR matrix)."""
+    return CSCMatrix(*poisson_ls.build({"grid": g, "alpha": 0.5}, None))
+
+
+def _index_bytes(sched) -> int:
+    """Bytes of every index tensor of an mfqr ``_Sched``, walked."""
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            return x.nbytes
+        if isinstance(x, dict):
+            return walk(list(x.values()))
+        if isinstance(x, (list, tuple)):
+            return sum(map(walk, x))
+        return 0
+    return walk([sched.factor, sched.assemble, sched.disassemble, sched.io,
+                 sched.rsolve, sched.pass_rows, sched.pass_slots])
+
+
+def test_qr_factor_spans_form_the_tree(monkeypatch):
+    """A recorded ``MultifrontalQR.factor()``: the root ``mfqr.factor``
+    over the upload, one assembly and one fronts span a level in level
+    order, and the rank check; ``panels`` on each fronts span is its
+    level's H2 launches and on the root the factor's, both counted by a
+    wrapper of ``dense.qr_panel`` (the call site ``qr_factor_partial``
+    launches through); the first factor uploads the scattered A and the
+    schedule (``sched_uploads`` 1, ``h2d_bytes`` both), the next
+    neither."""
+    launched = []
+    panel = dense.qr_panel
+
+    def counted(*a):
+        launched.append(a[0].shape)
+        return panel(*a)
+    monkeypatch.setattr(dense, "qr_panel", counted)
+    F = MultifrontalQR(_poisson_ls(8), device="cpu")
+    L = F.plan.nlevels
+    got = []
+    for _ in range(2):
+        launched.clear()
+        with recording() as rec:
+            assert F.factor()
+        by, root = _assert_tree_named(rec, "mfqr.factor")
+        assert all(by[s.parent] is root for s in rec if s is not root)
+        assert [s.name[len("mfqr.factor."):] for s in rec[1:]] == (
+            ["upload"] + ["assemble", "fronts"] * L + ["check"])
+        fronts = [s.counts["panels"] for s in rec
+                  if s.name == "mfqr.factor.fronts"]
+        assert fronts == [sum(-(-min(b) // 8) for b in lf)
+                          for lf in F.plan.level_factor]
+        assert root.counts["panels"] == sum(fronts) == len(launched) > 0
+        up, = [s.counts for s in rec if s.name == "mfqr.factor.upload"]
+        assert all(s.counts == {} for s in rec if s.name in (
+            "mfqr.factor.assemble", "mfqr.factor.check"))
+        got.append((root.counts["sched_uploads"], up["h2d_bytes"]))
+    pools = sum(v.nbytes for v in F.plan.pool_init.values())
+    assert got == [(1, pools + _index_bytes(F._sched)), (0, 0)]
+    assert _index_bytes(F._sched) == F._sched.nbytes > 0
+
+
+def test_qr_factor_records_nothing_when_off():
+    F = MultifrontalQR(_poisson_ls(6), device="cpu")
+    before = [s.index for s in profiling.spans()]
+    assert F.factor() and F.factor()
+    assert [s.index for s in profiling.spans()] == before
 
 
 def test_the_off_cost_of_a_span():

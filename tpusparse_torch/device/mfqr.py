@@ -24,6 +24,14 @@ device once, as index tensors; then, level by level:
 ``solve_ls`` and ``solve_minnorm`` follow cs_qrsol, inside f64
 augmented-system refinement on the host (contraction ~kappa(A) eps_f32:
 Q is exact, so not the kappa^2 of the Q-less ``SparseQR``).
+``extract_R`` reads R from the pools as a host CSC on its true pattern.
+
+Spans (utils/profiling.py, recorded only while recording is on): the
+root ``mfqr.factor`` (counts ``panels``, the H2 launches of the call,
+and ``sched_uploads``, 1 in the factor that built the device schedule
+or uploaded the scattered A), its ``.upload`` (``h2d_bytes``), one
+``.assemble`` and one ``.fronts`` (``panels``) a level, and ``.check``
+around the rank check's one host sync.
 
 Structural rank follows cs_qr's fictitious rows: a front with fewer rows
 than pivot columns is padded with zero rows, whose reflectors are the
@@ -49,7 +57,8 @@ import torch
 
 from ..core.matrix import CSCMatrix
 from ..core.ops import gaxpy, norm1, transpose
-from ..utils.profiling import Metrics
+from ..utils.profiling import Metrics, span
+from ..utils.profiling import add as count
 from .dense import qr_factor_partial
 from .kernels import qr_apply
 from .mfqr_plan import MfqrPlan, plan_mfqr
@@ -75,12 +84,17 @@ def _pairs(psl, csl, RM, Rhp: int, Rhc: int) -> tuple:
 class _Sched:
     """The plan's schedules as index tensors on the device (uploaded once,
     so the factor and the passes move no schedule from the host), each
-    list indexed by level."""
+    list indexed by level; ``nbytes`` the bytes uploaded, ``panels`` the
+    H2 launches of each level's fronts in a factor."""
 
     def __init__(self, plan: MfqrPlan, device: torch.device):
+        self.nbytes = 0
+
         def t(a, dtype=torch.int64):
-            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                                   device=device)
+            out = torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                  device=device)
+            self.nbytes += out.nbytes
+            return out
 
         m, n, ysize = plan.m, plan.n, plan.ysize
         L = plan.nlevels
@@ -128,6 +142,8 @@ class _Sched:
                     piv=t(piv, torch.bool),
                     rtset=t(np.where(piv, colsJ, n)),
                     rtadd=t(np.where(piv, n, colsJ))))
+        self.panels = [sum(-(-kelim // _BS) for _, kelim, _ in lv)
+                       for lv in self.factor]
         self.pass_rows = t(plan.pass_rows)
         self.pass_slots = t(plan.pass_slots)
         self.eye = {}
@@ -135,6 +151,91 @@ class _Sched:
             for e in lv:
                 if e["WB"] not in self.eye:
                     self.eye[e["WB"]] = torch.eye(e["WB"], device=device)
+
+
+_FAR = 1 << 30   # a pattern row past every front's
+
+
+def _r_pattern(plan: MfqrPlan, A: CSCMatrix) -> dict:
+    """R's true pattern in the pools: {bucket: (c0, w, gcol, first)} as
+    host int64 arrays, c0 and w (S,) the slots' first pivot and pivot
+    count, gcol and first (S, Ch).  Column c of slot s's front is the
+    permuted column gcol[s, c] (n past the front's columns), and front
+    row r < w, R's row c0 + r, holds R's entry in it where
+    first[s, c] <= r <= c.
+
+    Row merge inside a front: its pivots are a chain of the column
+    etree, and the rows eliminated at pivot j carry on as one row to
+    j + 1, so R's row j holds column k from the first pivot at which a
+    front row that holds k is eliminated.  A front's rows are its rows
+    of A(:, q), each eliminated at its leftmost column, and the
+    contribution of each child, whose first row holds the child's whole
+    od and is eliminated at od[0] (its further rows hold less of od).
+    This is the pattern ``plan.rnz`` counts.  Outside it, the positions
+    that amalgamation adds to a front's R rows are zero in exact
+    arithmetic and hold zeros or rounding (the dense front's products
+    that cancel there).  Vectorised over all fronts at once."""
+    n, fronts = plan.n, plan.fronts
+    nf = len(fronts)
+
+    def per_front(attr):
+        return np.fromiter((getattr(f, attr) for f in fronts), np.int64, nf)
+    c0, w, cr, slot = (per_front(a) for a in ("c0", "w", "cr", "slot"))
+    nod = np.fromiter((f.od.size for f in fronts), np.int64, nf)
+    bnum = {b: i for i, b in enumerate(plan.buckets)}
+    fb = np.fromiter((bnum[f.bucket] for f in fronts), np.int64, nf)
+    od = np.concatenate([f.od for f in fronts]).astype(np.int64)
+
+    def spread(counts):
+        """(front, position in its run) of runs of ``counts`` a front."""
+        fid = np.repeat(np.arange(nf), counts)
+        starts = np.cumsum(counts) - counts
+        return fid, np.arange(fid.size) - starts[fid]
+    pf, pp = spread(w)                              # pivot columns
+    of, op = spread(nod)                            # od columns
+    colf = np.concatenate([pf, of])
+    colpos = np.concatenate([pp, w[of] + op])
+    colk = np.concatenate([c0[pf] + pp, od])
+
+    # candidates (front, column, pivot where a row holding it is
+    # eliminated): the rows of A(:, q) ...
+    qinv = np.empty(n, np.int64)
+    qinv[plan.q] = np.arange(n)
+    rows = A.indices
+    kq = qinv[np.repeat(np.arange(n), np.diff(A.indptr))]
+    leftmost = np.full(A.m, n, np.int64)
+    np.minimum.at(leftmost, rows, kq)
+    lm = leftmost[rows]
+    # ... and each child's first contribution row
+    odfirst = np.zeros(nf, np.int64)
+    odfirst[nod > 0] = od[(np.cumsum(nod) - nod)[nod > 0]]
+    kid = (cr[of] > 0)
+    cand_f = np.concatenate([plan.col2sn[lm], plan.col2sn[odfirst[of]][kid]])
+    cand_k = np.concatenate([kq, od[kid]])
+    cand_v = np.concatenate([lm, odfirst[of][kid]])
+    key = cand_f * (n + 1) + cand_k
+    order = np.lexsort((cand_v, key))
+    key, cand_v = key[order], cand_v[order]
+    head = np.r_[True, key[1:] != key[:-1]]
+    ukey, uval = key[head], cand_v[head]
+    ckey = colf * (n + 1) + colk
+    at = np.minimum(np.searchsorted(ukey, ckey), max(ukey.size - 1, 0))
+    found = ukey[at] == ckey
+    first = np.where(found, uval[at] - c0[colf], _FAR)
+
+    out = {}
+    for b in plan.buckets:
+        S, Ch = plan.bucket_count[b], b[1]
+        gcol = np.full((S, Ch), n, np.int64)
+        fst = np.full((S, Ch), _FAR, np.int64)
+        sel = fb[colf] == bnum[b]
+        gcol[slot[colf[sel]], colpos[sel]] = colk[sel]
+        fst[slot[colf[sel]], colpos[sel]] = first[sel]
+        mine = fb == bnum[b]
+        bc0, bw = np.zeros(S, np.int64), np.zeros(S, np.int64)
+        bc0[slot[mine]], bw[slot[mine]] = c0[mine], w[mine]
+        out[b] = (bc0, bw, gcol, fst)
+    return out
 
 
 class MultifrontalQR:
@@ -175,6 +276,7 @@ class MultifrontalQR:
         self.taus = None
         self.rank_ok = False
         self.last_info = {}
+        self._rpat = None                # R's pattern, made by extract_R
 
     @property
     def _sched(self) -> _Sched:
@@ -185,14 +287,28 @@ class MultifrontalQR:
 
     def factor(self) -> bool:
         plan = self.plan
-        if self._pool0 is None:          # the scattered A, uploaded once
-            self._pool0 = {b: torch.from_numpy(v).to(self.device)
-                           for b, v in plan.pool_init.items()}
-        pools = {b: v.clone() for b, v in self._pool0.items()}
-        taus = {b: torch.zeros((plan.bucket_count[b], b[1]),
-                               device=self.device) for b in plan.buckets}
-        self._factor_pools(pools, taus)
-        mn, finite = self._rdiag_check(pools)
+        with span("mfqr.factor") as root:
+            with span("mfqr.factor.upload") as up:
+                first = self._sched_cache is None or self._pool0 is None
+                h2d = 0
+                if self._sched_cache is None:
+                    h2d += self._sched.nbytes
+                if self._pool0 is None:      # the scattered A, uploaded once
+                    self._pool0 = {b: torch.from_numpy(v).to(self.device)
+                                   for b, v in plan.pool_init.items()}
+                    h2d += sum(v.nbytes for v in self._pool0.values())
+                pools = {b: v.clone() for b, v in self._pool0.items()}
+                taus = {b: torch.zeros((plan.bucket_count[b], b[1]),
+                                       device=self.device)
+                        for b in plan.buckets}
+                if up:
+                    count("h2d_bytes", h2d)
+            self._factor_pools(pools, taus)
+            with span("mfqr.factor.check"):
+                mn, finite = self._rdiag_check(pools)
+            if root:
+                count("panels", sum(self._sched.panels))
+                count("sched_uploads", int(first))
         self.rank_ok = finite and mn > 0.0
         if finite:
             self.pools, self.taus = pools, taus
@@ -202,26 +318,34 @@ class MultifrontalQR:
         """The level loop of the factor, in place on ``pools`` (the
         scattered A) and ``taus`` (zeros); a bucket batch of fronts is
         factored by ``qr_factor_partial`` through ``batches``
-        (device/batching.py)."""
+        (device/batching.py).  Each level's assembly and fronts run in
+        spans ``mfqr.factor.assemble`` and ``mfqr.factor.fronts``, the
+        latter counting its H2 launches (``panels``)."""
         plan, sched = self.plan, self._sched
         for lvl in range(plan.nlevels):
-            for cb, pb, dst, src, pp, crow, CM, CMc in sched.assemble[lvl]:
-                # the child rows, spread to the parent's columns; only
-                # the upper trapezoid (parent column map >= child row)
-                rows = pools[cb].view(-1, cb[1]).index_select(0, src)
-                vals = rows.gather(1, CMc.index_select(0, pp))
-                keep = CM.index_select(0, pp) >= crow[:, None]
-                pools[pb].view(-1, pb[1]).index_add_(0, dst, vals * keep)
-            for b, kelim, sl in sched.factor[lvl]:
-                Mb = pools[b].index_select(0, sl)
-                tb = torch.zeros((sl.shape[0], b[1]), device=self.device)
+            with span("mfqr.factor.assemble"):
+                for cb, pb, dst, src, pp, crow, CM, CMc in \
+                        sched.assemble[lvl]:
+                    # the child rows, spread to the parent's columns; only
+                    # the upper trapezoid (parent column map >= child row)
+                    rows = pools[cb].view(-1, cb[1]).index_select(0, src)
+                    vals = rows.gather(1, CMc.index_select(0, pp))
+                    keep = CM.index_select(0, pp) >= crow[:, None]
+                    pools[pb].view(-1, pb[1]).index_add_(0, dst,
+                                                         vals * keep)
+            with span("mfqr.factor.fronts") as fr:
+                for b, kelim, sl in sched.factor[lvl]:
+                    Mb = pools[b].index_select(0, sl)
+                    tb = torch.zeros((sl.shape[0], b[1]), device=self.device)
 
-                def part(lo, hi):
-                    qr_factor_partial(Mb[lo:hi], tb[lo:hi], _BS, kelim)
-                    return Mb[lo:hi], tb[lo:hi]
-                Mb, tb = one(batches, sl.shape[0], part)
-                pools[b].index_copy_(0, sl, Mb)
-                taus[b].index_copy_(0, sl, tb)
+                    def part(lo, hi):
+                        qr_factor_partial(Mb[lo:hi], tb[lo:hi], _BS, kelim)
+                        return Mb[lo:hi], tb[lo:hi]
+                    Mb, tb = one(batches, sl.shape[0], part)
+                    pools[b].index_copy_(0, sl, Mb)
+                    taus[b].index_copy_(0, sl, tb)
+                if fr:
+                    count("panels", sched.panels[lvl])
 
     def _rdiag_check(self, pools) -> tuple:
         """(min |R_kk| over the pivot columns, all-finite) of the factored
@@ -244,6 +368,39 @@ class MultifrontalQR:
             return False
         mn, finite = self._rdiag_check(self.pools)
         return finite and mn > 0.0
+
+    def extract_R(self) -> CSCMatrix:
+        """The factored pools as a host CSC R (n x n, upper triangular, in
+        the permuted column order A(:, q), ``plan.q``; true pattern only,
+        ``plan.rnz`` entries, rows sorted in each column), so that
+        A(:, q) = Q R with R's rows signed as the pools hold them; the
+        rounding that a front holds outside the pattern is left out.  Read
+        a bucket at a time on the pools' device; the pattern
+        (``_r_pattern``) is made once per plan, on the host."""
+        if self.pools is None:
+            raise ValueError("factor() first")
+        n, dev = self.plan.n, self.device
+        if self._rpat is None:
+            self._rpat = _r_pattern(self.plan, self.A)
+        rows, cols, vals = [], [], []
+        for b, (c0, w, gcol, first) in self._rpat.items():
+            WB = int(w.max())
+            r = torch.arange(WB, device=dev)[None, :, None]
+            c = torch.arange(b[1], device=dev)[None, None, :]
+            w_t = torch.as_tensor(w, device=dev)[:, None, None]
+            first_t = torch.as_tensor(first, device=dev)[:, None, :]
+            s, rr, cc = ((first_t <= r) & (r <= c) & (r < w_t)).nonzero(
+                as_tuple=True)
+            vals.append(self.pools[b][s, rr, cc])
+            rows.append(torch.as_tensor(c0, device=dev)[s] + rr)
+            cols.append(torch.as_tensor(gcol, device=dev)[s, cc])
+        rows, cols, vals = (torch.cat(v) for v in (rows, cols, vals))
+        order = torch.argsort(cols * n + rows)
+        cols = cols[order].cpu().numpy()
+        indptr = np.zeros(n + 1, np.int64)
+        np.cumsum(np.bincount(cols, minlength=n), out=indptr[1:])
+        return CSCMatrix(n, n, indptr, rows[order].cpu().numpy(),
+                         vals[order].cpu().numpy().astype(np.float64))
 
     # ------------------------------------------------------- raw passes
     def _zbufs(self) -> dict:
