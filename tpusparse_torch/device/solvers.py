@@ -33,7 +33,11 @@ SUPERSCAN_MIN_N = 16384
 def cholsol(order: int, A: CSCMatrix, b: np.ndarray, engine: str = None,
             device="cuda"):
     """SPD solve (reference: cs_cholsol).  Returns (ok, x): (False, None)
-    on a shape mismatch or when the factorization fails.
+    on a shape mismatch or when the factorization fails.  ``b`` of n
+    entries gives x by the engine's ``solve``; an (n, k) block of
+    right-hand sides gives the (n, k) X by its ``solve_many`` (one
+    factor, each sweep batched over the k columns, each column refined
+    to its own grade).
 
     ``engine`` (default TPUSPARSE_CHOL_ENGINE, else "auto"): "superscan",
     "supernodal" or "tiled" (the fixed-tile ``TpuCholesky``); "auto" is
@@ -43,7 +47,8 @@ def cholsol(order: int, A: CSCMatrix, b: np.ndarray, engine: str = None,
     engine falls back to the next (superscan, supernodal, tiled, then
     ok=False), is not ported: it would hide a defect.
     """
-    if A.m != A.n or A.m != len(b):
+    b = np.asarray(b, np.float64)
+    if A.m != A.n or b.ndim not in (1, 2) or A.m != b.shape[0]:
         return False, None
     if engine is None:
         engine = os.environ.get("TPUSPARSE_CHOL_ENGINE", "auto")
@@ -59,7 +64,7 @@ def cholsol(order: int, A: CSCMatrix, b: np.ndarray, engine: str = None,
         raise ValueError(f"unknown cholsol engine {engine!r}")
     if not F.factor():
         return False, None
-    return True, F.solve(np.asarray(b, np.float64))
+    return True, F.solve_many(b)
 
 
 def lusol(order: int, A: CSCMatrix, b: np.ndarray, tol: float = 1.0,

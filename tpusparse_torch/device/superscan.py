@@ -48,8 +48,9 @@ GEMMs from its caller.
 ``solve_host`` solves on the downloaded factor with the host trisolves.
 Spans (``utils.profiling``, recorded only under a profiler or
 ``recording()``) mark the plan, the factor with its uploads, segments,
-phases and check, and the solve with its sweeps; the shared factor
-and solve loops take their spans' names from their caller
+phases and check, the solve with its sweeps, and the block solve
+(``solve_many``) with its sweeps and ``refine_many``'s residuals; the
+shared factor and solve loops take their spans' names from their caller
 (``_Phases.name``, ``_solve_sweep``'s ``name``).  The copied
 ``_solve_xs`` has no per-step slot cap (superscan.py:1895-1944, the
 relay's TPUSPARSE_SOLVE_SLOT_CAP, default 1024): the cap pads every key
@@ -741,13 +742,22 @@ class SuperscanCholesky:
     def solve_many(self, B: np.ndarray, refine_iters: int = 3) -> np.ndarray:
         """Solve A X = B for (n, k) right-hand sides: one batched device
         solve per sweep + batched f64 refinement (factor once, solve
-        many)."""
+        many).  The span ``superscan.solve_many`` counts the ``sweeps``
+        and the ``cols`` k; its sweeps keep the ``superscan.solve.*``
+        names."""
         B = np.asarray(B, dtype=np.float64)
         if B.ndim == 1:
             return self.solve(B, refine_iters)
         if self.pools is None and not self.factor():
             raise ValueError("matrix is not positive definite")
-        return refine_many(self.A, self._solve_f32_many, B, refine_iters)
+        solve_f32_many = self._solve_f32_many
+
+        def sweep(R):
+            count("sweeps")
+            return solve_f32_many(R)
+        with span("superscan.solve_many"):
+            count("cols", B.shape[1])
+            return refine_many(self.A, sweep, B, refine_iters)
 
     def solve_host(self, b: np.ndarray, refine_iters: int = 3) -> np.ndarray:
         """Host f64 triangular solves on the extracted factor (downloads
